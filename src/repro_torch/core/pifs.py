@@ -1,0 +1,415 @@
+"""PIFSEmbeddingEngine on one device (a port of ``repro.core.pifs``).
+
+The paged two-tier embedding store and its lookups, for the DLRM serve
+path on one card (the reference's dp=1, tp=1 mesh):
+
+  * ``pifs``   -- reduce near the data: the cold tier runs a masked
+                  partial SLS over the rows it owns and hot-tier hits are
+                  served from the replicated copy;
+  * ``beacon`` -- the same datapath with tiering disabled (build the
+                  engine with ``hot_fraction=0`` and never promote pages).
+
+State is an ``EngineState`` of tensors; every method is functional.  State
+crosses from the reference engine as the placement-free triple of
+``export_state`` plus a page table, into :meth:`pack_state`.
+
+Not ported yet, each raising and naming its ``ROADMAP.md`` item:
+``mode="pond"`` and tp > 1 (queue 1 item 10), ``combine="psum_scatter"``
+(queue 1 item 10), ``dedup`` (queue 1 item 7), ``observe`` and the planner
+(queue 1 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core import sls as sls_ops
+from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
+                                     initial_page_table, locate)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kernel_ops
+
+_TODO = {
+    "pond": "mode='pond' is not ported yet (ROADMAP.md queue 1 item 10)",
+    "tp": "tp > 1 (n_shards > 1) is not ported yet (ROADMAP.md queue 1 "
+          "item 10)",
+    "psum_scatter": "combine='psum_scatter' is not ported yet (ROADMAP.md "
+                    "queue 1 item 10)",
+    "dedup": "dedup='auto'/'on' is not ported yet (ROADMAP.md queue 1 "
+             "item 7)",
+    "observe": "observe and the planner are not ported yet (ROADMAP.md "
+               "queue 1 item 6)",
+}
+
+
+@dataclasses.dataclass
+class EngineState:
+    cold: torch.Tensor           # (rows_per_shard, D) fp32, or int8 codes
+    hot: torch.Tensor            # (hot_rows, D) fp32 (never quantized)
+    page_scales: torch.Tensor    # (num_pages,) f32 per-page dequant scales,
+    #                              indexed by *global* page id (all ones for
+    #                              fp32), so a scale travels with its page
+    page_to_shard: torch.Tensor  # (num_pages,) int32; HOT_SHARD => hot tier
+    page_to_slot: torch.Tensor   # (num_pages,) int32
+    counts: torch.Tensor         # (num_pages,) f32 access histogram
+
+    @property
+    def page_table(self) -> PageTable:
+        return PageTable(self.page_to_shard, self.page_to_slot)
+
+
+class PIFSEmbeddingEngine:
+    """Paged multi-table embedding with a hot tier, on one device."""
+
+    DEDUP_MODES = ("off", "auto", "on")
+    FRONT_END_MODES = ("split", "fused")
+    TIER_MODES = ("all", "hot_only")
+
+    def __init__(self, paging: PagingConfig, device: DeviceLike = None,
+                 dedup: str = "off", validate_ids: bool = False):
+        """``device`` defaults to the card (raises without CUDA; pass
+        ``"cpu"`` for the CPU).  ``validate_ids`` makes lookups check ids
+        against the padded address space on the host and raise, instead
+        of reading whatever an out-of-range id addresses."""
+        if paging.n_shards != 1:
+            raise NotImplementedError(_TODO["tp"])
+        if dedup not in self.DEDUP_MODES:
+            raise ValueError(f"unknown dedup {dedup!r}; "
+                             f"expected one of {self.DEDUP_MODES}")
+        self.cfg = paging
+        self.device = resolve_device(device)
+        self.default_dedup = dedup
+        self.validate_ids = validate_ids
+        self._fe_plans: dict = {}      # key -> front-end resolution record
+
+    @property
+    def quantized(self) -> bool:
+        return self.cfg.storage == "int8"
+
+    @property
+    def cold_dtype(self) -> torch.dtype:
+        """Cold-tier storage dtype (int8 codes for storage='int8')."""
+        return torch.int8 if self.quantized else torch.float32
+
+    def _as(self, x, dtype=None) -> torch.Tensor:
+        """A tensor on this engine's device from a tensor or array-like
+        (e.g. the reference engine's arrays)."""
+        return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
+                               dtype=dtype, device=self.device)
+
+    def _table(self, table: Optional[PageTable]) -> PageTable:
+        if table is None:
+            return initial_page_table(self.cfg, self.device)
+        return PageTable(self._as(table.page_to_shard, torch.int32),
+                         self._as(table.page_to_slot, torch.int32))
+
+    def _page_rows(self, table: PageTable):
+        """(cold_dst, cold_src, hot_dst, hot_src) row maps of a placement:
+        logical row ``src`` lives at storage row ``dst`` of its tier."""
+        c = self.cfg
+        ps = c.page_size
+        shard = table.page_to_shard.long()
+        slot = table.page_to_slot.long()
+        off = torch.arange(ps, device=self.device)
+        cold_pages = torch.nonzero(shard != HOT_SHARD)[:, 0]
+        hot_pages = torch.nonzero(shard == HOT_SHARD)[:, 0]
+        cold_base = (shard * c.rows_per_shard + slot * ps)[cold_pages]
+        hot_base = (slot * ps)[hot_pages]
+        return ((cold_base[:, None] + off).reshape(-1),
+                (cold_pages[:, None] * ps + off).reshape(-1),
+                (hot_base[:, None] + off).reshape(-1),
+                (hot_pages[:, None] * ps + off).reshape(-1))
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, generator: torch.Generator, scale: float = 0.01,
+                   table: Optional[PageTable] = None) -> EngineState:
+        """Random-init tables from ``generator`` (normal * ``scale``,
+        drawn on the generator's device), placed by ``table`` (default:
+        the initial round-robin interleave with an empty hot tier)."""
+        c = self.cfg
+        dense = torch.randn((c.padded_rows, c.dim), generator=generator,
+                            device=generator.device) * scale
+        return self.from_dense(dense, table)
+
+    def from_dense(self, dense: torch.Tensor,
+                   table: Optional[PageTable] = None) -> EngineState:
+        """Pack a dense (rows, D) fp32 table into paged storage.  With
+        ``storage='int8'`` every page gets a symmetric per-page scale and
+        cold pages hold int8 codes; hot pages keep their fp32 values."""
+        c = self.cfg
+        table = self._table(table)
+        dense = dense.to(self.device, torch.float32)
+        if dense.shape[0] < c.padded_rows:
+            dense = torch.cat([dense, dense.new_zeros(
+                (c.padded_rows - dense.shape[0], c.dim))])
+        if self.quantized:
+            q_pages, scales = quant.quantize_pages(
+                dense.reshape(c.num_pages, c.page_size, c.dim))
+            cold_vals = q_pages.reshape(-1, c.dim)
+        else:
+            scales = torch.ones(c.num_pages, device=self.device)
+            cold_vals = dense
+        return self._pack(cold_vals, dense, scales, table, None)
+
+    def _pack(self, codes, values, scales, table: PageTable,
+              counts) -> EngineState:
+        c = self.cfg
+        cold_dst, cold_src, hot_dst, hot_src = self._page_rows(table)
+        cold = torch.zeros((c.cold_rows_total, c.dim), dtype=self.cold_dtype,
+                           device=self.device)
+        hot = torch.zeros((c.hot_rows, c.dim), dtype=torch.float32,
+                          device=self.device)
+        cold[cold_dst] = codes[cold_src].to(self.cold_dtype)
+        hot[hot_dst] = values[hot_src].to(torch.float32)
+        return EngineState(
+            cold=cold, hot=hot,
+            page_scales=self._as(scales, torch.float32),
+            page_to_shard=table.page_to_shard,
+            page_to_slot=table.page_to_slot,
+            counts=(torch.zeros(c.num_pages, device=self.device)
+                    if counts is None else self._as(counts, torch.float32)))
+
+    def _logical_rows(self, state: EngineState):
+        """Per logical row: its cold-tier row, hot-tier row and tier."""
+        c = self.cfg
+        row = torch.arange(c.padded_rows, device=self.device)
+        shard, local_row, is_hot = locate(c, state.page_table, row)
+        cold_pos = shard.long() * c.rows_per_shard + local_row
+        zero = torch.zeros_like(local_row)
+        cold_rows = state.cold[torch.where(is_hot, zero, cold_pos)]
+        hot_rows = state.hot[torch.where(is_hot, local_row, zero)]
+        scales = state.page_scales[row // c.page_size][:, None]
+        return cold_rows, hot_rows, is_hot[:, None], scales
+
+    def to_dense(self, state: EngineState) -> torch.Tensor:
+        """The effective (padded_rows, D) fp32 table every lookup computes
+        against (int8 cold rows dequantized)."""
+        cold_rows, hot_rows, is_hot, scales = self._logical_rows(state)
+        if self.quantized:
+            cold_rows = quant.dequantize_rows(cold_rows, scales)
+        return torch.where(is_hot, hot_rows, cold_rows)
+
+    def export_state(self, state: EngineState
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Placement-invariant export ``(codes, values, scales)``: codes in
+        the cold-tier storage dtype (hot rows re-quantized on their page's
+        carried scale), values fp32 (cold rows dequantized), scales
+        untouched -- the reference's ``export_state`` triple."""
+        cold_rows, hot_rows, is_hot, scales = self._logical_rows(state)
+        if self.quantized:
+            codes = torch.where(is_hot, quant.quantize_rows(hot_rows, scales),
+                                cold_rows)
+            values = torch.where(is_hot, hot_rows,
+                                 quant.dequantize_rows(cold_rows, scales))
+        else:
+            codes = values = torch.where(is_hot, hot_rows, cold_rows)
+        return codes, values, state.page_scales
+
+    def pack_state(self, codes, values, page_scales,
+                   table: Optional[PageTable] = None,
+                   counts=None) -> EngineState:
+        """Inverse of :meth:`export_state` under any placement: cold slots
+        take ``codes`` verbatim, hot slots ``values``, scales are carried
+        untouched.  Inputs may be numpy arrays (e.g. the reference
+        engine's export) or tensors."""
+        return self._pack(self._as(codes), self._as(values),
+                          page_scales, self._table(table), counts)
+
+    # ---------------------------------------------------------------- lookup
+    def _check_ids(self, indices: torch.Tensor) -> None:
+        """Strict-mode guard: raise on ids outside the padded address
+        space (an out-of-range id would read the wrong row, or fault)."""
+        idx = indices.detach().cpu().numpy()
+        bad = (idx < 0) | (idx >= self.cfg.padded_rows)
+        if bad.any():
+            example = int(idx[np.unravel_index(np.argmax(bad), idx.shape)])
+            raise ValueError(
+                f"validate_ids: {int(bad.sum())} out-of-range id(s) in lookup "
+                f"batch (e.g. {example}; valid range is [0, "
+                f"{self.cfg.padded_rows}))")
+
+    def _check_knobs(self, mode: str, combine: str, dedup: Optional[str]
+                     ) -> str:
+        if mode not in ("pifs", "pond", "beacon"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if combine not in ("psum", "psum_scatter"):
+            raise ValueError(f"unknown combine {combine!r}")
+        dedup = self.default_dedup if dedup is None else dedup
+        if dedup not in self.DEDUP_MODES:
+            raise ValueError(f"unknown dedup {dedup!r}; "
+                             f"expected one of {self.DEDUP_MODES}")
+        if mode == "pond":
+            raise NotImplementedError(_TODO["pond"])
+        if combine == "psum_scatter":
+            raise NotImplementedError(_TODO["psum_scatter"])
+        if dedup != "off":
+            raise NotImplementedError(_TODO["dedup"])
+        return dedup
+
+    def lookup(self, state: EngineState, indices: torch.Tensor,
+               weights: Optional[torch.Tensor] = None, mode: str = "pifs",
+               combine: str = "psum", impl: str = "cuda",
+               dedup: Optional[str] = None,
+               tiers: str = "all") -> torch.Tensor:
+        """Pooled lookup: indices (B, G, L) int32 global row ids, optional
+        weights (B, G, L) f32 -> (B, G, D) f32.  ``tiers='hot_only'`` reads
+        the hot tier only (cold contributions are exact zeros; the serving
+        brown-out rung).  ``impl``: see ``kernels/ops.py``."""
+        self._check_knobs(mode, combine, dedup)
+        if tiers not in self.TIER_MODES:
+            raise ValueError(f"unknown tiers {tiers!r}; "
+                             f"expected one of {self.TIER_MODES}")
+        if self.validate_ids:
+            self._check_ids(indices)
+        return self._lookup_block(state, indices, weights, impl=impl,
+                                  tiers=tiers)
+
+    def lookup_interact(self, state: EngineState, indices: torch.Tensor,
+                        dense_feature: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        mode: str = "pifs", combine: str = "psum",
+                        impl: str = "cuda",
+                        dedup: Optional[str] = None,
+                        front_end: str = "split") -> torch.Tensor:
+        """Pooled lookup fused with the DLRM dot interaction: indices
+        (B, G, L), dense_feature (B, D) the bottom-MLP output (feature row
+        0) -> (B, P) packed lower triangle.  ``front_end='split'`` pools
+        then interacts with two kernels; ``'fused'`` resolves, on one
+        device, to the single three-phase kernel.  The resolution is
+        recorded in ``plan_stats()['front_end']``.  Split and fused are
+        bitwise equal."""
+        dedup = self._check_knobs(mode, combine, dedup)
+        if front_end not in self.FRONT_END_MODES:
+            raise ValueError(f"unknown front_end {front_end!r}; "
+                             f"expected one of {self.FRONT_END_MODES}")
+        if dense_feature.ndim != 2 or dense_feature.shape[-1] != self.cfg.dim:
+            raise ValueError(
+                f"dense_feature must be (B, {self.cfg.dim}); got "
+                f"{tuple(dense_feature.shape)}")
+        if self.validate_ids:
+            self._check_ids(indices)
+        key = ("interact", mode, combine, impl,
+               self.cfg.storage, dedup, front_end, tuple(indices.shape),
+               weights is not None)
+        rec = self._fe_plans.get(key)
+        if rec is None:
+            rec = self._fe_plans[key] = self._resolve_front_end(front_end)
+        if rec["resolved"] == "fused":
+            return self._interact_block_fused(state, indices, dense_feature,
+                                              weights, impl=impl)
+        pooled = self._lookup_block(state, indices, weights, impl=impl)
+        feats = torch.cat([dense_feature[:, None, :], pooled], dim=1)
+        return kernel_ops.dot_interaction(feats, impl=impl)
+
+    @staticmethod
+    def _resolve_front_end(front_end: str) -> dict:
+        """One device is the reference's tp == 1 config, where a fused
+        request resolves to the single three-phase kernel (tp > 1 and pond
+        would resolve 'fused_tp'; neither is ported yet)."""
+        if front_end == "split":
+            resolved, reason = "split", "requested"
+        else:
+            resolved, reason = "fused", "replicated/dp-sharded config"
+        return {"requested": front_end, "resolved": resolved,
+                "reason": reason, "tp": 1}
+
+    def plan_stats(self) -> dict:
+        """One front-end resolution record per ``lookup_interact``
+        signature, under ``'front_end'``."""
+        return {"front_end": {self._key_label(k): dict(v)
+                              for k, v in self._fe_plans.items()}}
+
+    @staticmethod
+    def _key_label(key) -> str:
+        (_, mode, combine, impl, storage, dedup, front_end, shape,
+         weighted) = key
+        return (f"interact:{mode}/{combine}/{impl}/{storage}"
+                f"/dedup={dedup}/fe={front_end}"
+                f"/idx={'x'.join(map(str, shape))}" + ("+w" if weighted
+                                                       else ""))
+
+    def observe(self, state: EngineState, indices, weights=None):
+        raise NotImplementedError(_TODO["observe"])
+
+    def plan_and_migrate(self, state: EngineState):
+        raise NotImplementedError(_TODO["observe"])
+
+    # ----------------------------------------------------------- the blocks
+    def _address(self, state: EngineState, idx: torch.Tensor):
+        """Each entry's storage row, tier masks and (int8) page scale.  On
+        one device the cold tier is shard 0."""
+        ps = self.cfg.page_size
+        idx = idx.long()
+        page = idx // ps
+        shard = state.page_to_shard[page]
+        local_row = (state.page_to_slot[page].long() * ps
+                     + idx % ps).to(torch.int32)
+        owned = shard == 0
+        is_hot = shard == HOT_SHARD
+        scale = state.page_scales[page] if self.quantized else None
+        return local_row, owned, is_hot, scale
+
+    def _lookup_block(self, state: EngineState, idx: torch.Tensor,
+                      weights: Optional[torch.Tensor], *, impl: str,
+                      tiers: str = "all") -> torch.Tensor:
+        """The split datapath: per-tier masked partial SLS, then
+        ``cold + hot``."""
+        b, G, L = idx.shape
+        local_row, owned, is_hot, scale = self._address(
+            state, idx.reshape(b * G, L))
+        w = None if weights is None else weights.reshape(b * G, L)
+        hot_out = sls_ops.masked_partial_sls_dense(
+            state.hot, local_row, is_hot, w, impl=impl)
+        if tiers == "hot_only":
+            return hot_out.reshape(b, G, -1)
+        cold_part = sls_ops.masked_partial_sls_dense(
+            state.cold, local_row, owned, w, impl=impl, scales=scale)
+        # the reference psums cold_part over the tp axis (the identity at
+        # tp = 1) and adds hot_out: keep that operand order
+        return (cold_part + hot_out).reshape(b, G, -1)
+
+    def _interact_block_fused(self, state: EngineState, idx: torch.Tensor,
+                              x: torch.Tensor,
+                              weights: Optional[torch.Tensor], *, impl: str
+                              ) -> torch.Tensor:
+        """The fused datapath: the same address math as
+        :meth:`_lookup_block`, then the single-kernel SLS -> interaction."""
+        local_row, owned, is_hot, scale = self._address(state, idx)
+        return sls_ops.fused_front_end_dense(
+            state.cold, state.hot, x, local_row, owned, is_hot,
+            weights=weights, scales=scale, impl=impl)
+
+
+def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,
+                      hot_fraction: float = 0.05, page_bytes: int = 4096,
+                      storage: str = "fp32", dedup: str = "off",
+                      validate_ids: bool = False
+                      ) -> Tuple[PIFSEmbeddingEngine, np.ndarray]:
+    """Stack tables into one engine address space on one device.
+
+    Returns (engine, offsets) where offsets[t] is added to table-t ids.
+    Each table starts on a page boundary, so pages never straddle tables.
+    Raises if the address space exceeds int32 (row ids are int32 on the
+    device)."""
+    cfg0 = PagingConfig(total_rows=1, dim=dim, n_shards=1,
+                        page_bytes=page_bytes, itemsize=4,
+                        hot_fraction=hot_fraction, storage=storage)
+    ps = cfg0.page_size
+    offsets = []
+    total = 0
+    for v in vocab_sizes:
+        offsets.append(total)
+        total += -(-v // ps) * ps
+    cfg = dataclasses.replace(cfg0, total_rows=total)
+    if max(cfg.padded_rows, cfg.cold_rows_total) > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"table address space ({total} padded rows, "
+            f"{cfg.cold_rows_total} cold-tier rows incl. headroom) exceeds "
+            "int32 range; row indices are int32 on device")
+    return (PIFSEmbeddingEngine(cfg, device=device, dedup=dedup,
+                                validate_ids=validate_ids),
+            np.asarray(offsets, dtype=np.int64))

@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+The build runs at first use; every missing library is compiled by its own
+``nvcc`` process, all started together.  The hash covers every source and
+the flags, so an edited source is rebuilt.  Libraries are loaded with
+``ctypes``: pointers and the stream pass as ``c_void_p``, and every entry
+returns ``cudaGetLastError()`` after its launch.
+
+``KERNELS`` is the registry: what each kernel replaces and how often its
+wrapper launched it (a plain integer the wrapper bumps at each launch).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class KernelInfo:
+    name: str          # C entry point and source stem
+    replaces: str      # the Pallas TPU kernel (file:line of its pallas_call)
+    launches: int = 0  # launches by the wrapper since the last reset
+
+    @property
+    def source(self) -> str:
+        return str((CSRC / f"{self.name}.cu").relative_to(REPO_ROOT))
+
+
+KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
+    KernelInfo("masked_sls",
+               "src/repro/kernels/sls.py:148 (_sls_call: masked_sls_pallas"
+               " and sls_pallas)"),
+    KernelInfo("dot_interaction",
+               "src/repro/kernels/interaction.py:64 (dot_interaction_pallas)"),
+    KernelInfo("fused_front_end",
+               "src/repro/kernels/sls.py:614 (fused_front_end_pallas)"),
+)}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def build_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Path]:
+    """Compile every library that is not built yet, one ``nvcc`` each, all
+    in parallel.  Raises with the compiler's output if one fails.  The
+    ``-Xptxas -v`` report (registers, shared memory, spills) is kept in
+    ``build/kernels/<name>-<hash>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: lib_path(n) for n in names}
+    procs = {}
+    for n, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(out.with_suffix(".log"), "w")
+        procs[n] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{n}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
+    failed = []
+    for n, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{n} (rc={rc}):\n"
+                          + out.with_suffix(".log").read_text())
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of ``csrc/<name>.cu``, built and loaded on first
+    use, with its ``argtypes`` set and an ``int`` (cudaError_t) result."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
+        fn = getattr(_LIBS[name], name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")

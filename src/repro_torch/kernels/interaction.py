@@ -1,0 +1,60 @@
+"""Wrapper of the CUDA dot-interaction kernel: check, launch, count.
+
+``csrc/dot_interaction.cu`` replaces the Pallas TPU kernel
+``repro/kernels/interaction.py:dot_interaction_pallas``: Z = X X^T per
+sample on (B, F, D), packed lower triangle (B, P), the (B, F, F) product
+never in memory.  Bound by bytes (about 2 flops per byte at F = 9); a block
+stages a few samples' tiles in shared memory and each thread reduces whole
+dots in a fixed order over D, with the device function the fused front
+end shares.  Timings on the card are in ``PERF.md``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.sls import SMEM_MAX, _stream
+
+
+def check_dot_interaction(feats: torch.Tensor) -> None:
+    if feats.dim() != 3 or feats.dtype != torch.float32:
+        raise TypeError(f"feats: expected (B, F, D) float32, got "
+                        f"{feats.dtype} of shape {tuple(feats.shape)}")
+    if not feats.is_contiguous():
+        raise ValueError("feats must be contiguous")
+
+
+def samples_per_block(B: int, F: int, D: int, P: int, n_sm: int) -> int:
+    """A few samples per block: enough pairs for 256 threads, few enough
+    blocks' worth that the batch spreads over every SM, and a tile that
+    fits shared memory."""
+    fit = SMEM_MAX // (F * (D + 1) * 4)
+    if fit < 1:
+        raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
+    return max(1, min(max(1, 256 // P), -(-B // n_sm), fit))
+
+
+def dot_interaction(feats: torch.Tensor,
+                    self_interaction: bool = False) -> torch.Tensor:
+    """(B, F, D) -> (B, P) on the card (plain version:
+    ``ref.dot_interaction_ref``)."""
+    check_dot_interaction(feats)
+    if feats.device.type != "cuda":
+        raise ValueError("the dot_interaction kernel takes CUDA tensors")
+    B, F, D = feats.shape
+    P = F * (F + 1) // 2 if self_interaction else F * (F - 1) // 2
+    out = torch.empty((B, P), dtype=torch.float32, device=feats.device)
+    if B == 0 or P == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(
+        feats.device).multi_processor_count
+    S = samples_per_block(B, F, D, P, n_sm)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fn = build.entry("dot_interaction", [P_, P_, I_, I_, I_, I_, I_, I_, P_])
+    err = fn(feats.data_ptr(), out.data_ptr(), B, F, D, P,
+             int(self_interaction), S, _stream(feats))
+    build.check("dot_interaction", err)
+    build.KERNELS["dot_interaction"].launches += 1
+    return out

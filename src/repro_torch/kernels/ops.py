@@ -1,0 +1,74 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+``impl="cuda"`` (the default) sends a CUDA tensor to the hand-written
+kernel and a CPU tensor to the kernel's plain version in ``kernels/ref.py``
+-- only because it lies on the CPU.  On a CUDA tensor the kernel launches
+or raises; nothing falls back.  ``impl="torch"`` asks for the plain
+version on any device (the counterpart of the reference's ``impl='jnp'``;
+``chip_smoke.py`` uses it to hold the kernels against their plain
+versions on the card).
+
+Alignment on Hopper.  The reference pads D to the TPU's 128 lanes
+(``repro/kernels/ops.py:pad_to_lanes``); nothing here pads.  A Hopper
+kernel only wants 16-byte row chunks for vector loads: when D * itemsize
+is a multiple of 16 (fp32 D % 4 == 0, int8 D % 16 == 0, which covers the
+RMC widths 64 and 128) and the tables are 16-byte aligned (every PyTorch
+allocation is), the kernels load 16 bytes per thread; any other D takes
+the kernels' scalar path and stays correct.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import interaction as _interaction
+from repro_torch.kernels import ref
+from repro_torch.kernels import sls as _sls
+
+IMPLS = ("cuda", "torch")
+
+
+def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    return impl == "cuda" and t.device.type == "cuda"
+
+
+def masked_sls(table: torch.Tensor, indices: torch.Tensor,
+               owned: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None,
+               impl: str = "cuda") -> torch.Tensor:
+    """Masked partial SLS in fixed l-order: (N, L) -> (N, D) float32.
+    ``owned=None`` is plain SLS; ``scales`` dequantize an int8 table."""
+    _sls.check_masked_sls(table, indices, owned, weights, scales)
+    if _use_kernel(impl, table):
+        return _sls.masked_sls(table, indices, owned, weights, scales)
+    return ref._fixed_order_masked_sls(table, indices, owned, weights,
+                                       scales)
+
+
+def dot_interaction(feats: torch.Tensor, self_interaction: bool = False,
+                    impl: str = "cuda") -> torch.Tensor:
+    """DLRM pairwise-dot interaction: (B, F, D) -> (B, P)."""
+    _interaction.check_dot_interaction(feats)
+    if _use_kernel(impl, feats):
+        return _interaction.dot_interaction(feats, self_interaction)
+    return ref.dot_interaction_ref(feats, self_interaction)
+
+
+def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
+                    rows: torch.Tensor, owned: torch.Tensor,
+                    is_hot: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None,
+                    scales: Optional[torch.Tensor] = None,
+                    impl: str = "cuda") -> torch.Tensor:
+    """Fused two-tier masked SLS -> dot interaction: (B, P)."""
+    _sls.check_fused_front_end(cold, hot, x, rows, owned, is_hot, weights,
+                               scales)
+    if _use_kernel(impl, cold):
+        return _sls.fused_front_end(cold, hot, x, rows, owned, is_hot,
+                                    weights, scales)
+    return ref.fused_front_end_ref(cold, hot, x, rows, owned, is_hot,
+                                   weights, scales)

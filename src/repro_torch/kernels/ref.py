@@ -1,0 +1,121 @@
+"""Plain PyTorch versions of the kernels (torch twins of ``repro.kernels.ref``).
+
+Each CUDA kernel in this package has its plain version here.  The kernel
+wrappers take these for CPU tensors; on the card only ``chip_smoke.py``
+and an explicit ``impl="torch"`` call them, to hold the kernels against
+them.
+
+Accumulation order is the kernels' fixed l = 0..L-1 order.  The plain
+versions multiply then add (two roundings) where the kernels use one
+``fmaf``: with factors f = owned*w of 0 or 1 the product is exact and the
+two agree bitwise (all serving traffic); with general weights they may
+differ by at most 1 ulp per accumulate step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def sls_ref(table: torch.Tensor, indices: torch.Tensor,
+            weights: Optional[torch.Tensor] = None,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """SparseLengthSum: out[b] = sum_l w[b,l] * table[idx[b,l]]."""
+    rows = table[indices.long()].to(out_dtype)                  # (B, L, D)
+    if weights is not None:
+        rows = rows * weights[..., None].to(out_dtype)
+    return rows.sum(dim=1)
+
+
+def masked_sls_ref(table: torch.Tensor, indices: torch.Tensor,
+                   owned: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   out_dtype=torch.float32,
+                   scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked partial SLS (summed in one reduce, not in fixed order):
+    out[b] = sum_l owned[b,l] * w[b,l] * (scale[b,l] * table[idx[b,l]]).
+    Non-owned entries are remapped to row 0 before the gather."""
+    safe = torch.where(owned, indices, torch.zeros_like(indices))
+    rows = table[safe.long()].to(out_dtype)
+    if scales is not None:
+        rows = rows * scales[..., None].to(out_dtype)
+    w = owned.to(out_dtype)
+    if weights is not None:
+        w = w * weights.to(out_dtype)
+    return (rows * w[..., None]).sum(dim=1)
+
+
+def _fixed_order_masked_sls(table: torch.Tensor, indices: torch.Tensor,
+                            owned: Optional[torch.Tensor],
+                            weights: Optional[torch.Tensor] = None,
+                            scales: Optional[torch.Tensor] = None,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """Masked partial SLS in the kernels' fixed l-order -- the plain version
+    of the ``masked_sls`` kernel.  ``owned=None`` means every entry is
+    owned (plain SLS).  Each gathered row is dequantized
+    (``float(row) * scale``) before the weighted add."""
+    B, L = indices.shape
+    D = table.shape[-1]
+    if owned is None:
+        safe = indices
+        f = torch.ones((B, L), dtype=out_dtype, device=indices.device)
+    else:
+        safe = torch.where(owned, indices, torch.zeros_like(indices))
+        f = owned.to(out_dtype)
+    rows = table[safe.long()].to(out_dtype)                     # (B, L, D)
+    if scales is not None:
+        rows = rows * scales[..., None].to(out_dtype)
+    if weights is not None:
+        f = f * weights.to(out_dtype)
+    out = torch.zeros((B, D), dtype=out_dtype, device=table.device)
+    for l in range(L):
+        out = out + f[:, l, None] * rows[:, l]
+    return out
+
+
+def masked_sls_quant_ref(table_q: torch.Tensor, indices: torch.Tensor,
+                         owned: torch.Tensor, scales: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Quantized masked partial SLS in fixed l-order: int8 codes, per-entry
+    dequant scales (the page scale gathered per pooling entry)."""
+    return _fixed_order_masked_sls(table_q, indices, owned, weights, scales,
+                                   out_dtype)
+
+
+def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
+                        ) -> torch.Tensor:
+    """DLRM pairwise-dot interaction: (B, F, D) -> (B, P) packed lower
+    triangle of feats @ feats^T, P = F*(F-1)/2 (+F if self_interaction)."""
+    B, F, D = feats.shape
+    z = torch.bmm(feats, feats.transpose(1, 2))
+    ij = torch.tril_indices(F, F, offset=0 if self_interaction else -1,
+                            device=feats.device)
+    return z[:, ij[0], ij[1]]
+
+
+def fused_front_end_ref(cold: torch.Tensor, hot: torch.Tensor,
+                        x: torch.Tensor, rows: torch.Tensor,
+                        owned: torch.Tensor, is_hot: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        scales: Optional[torch.Tensor] = None,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """Fused DLRM front end: two-tier masked SLS -> features -> interaction.
+
+    Exactly the split pipeline: each tier's partial SLS in fixed l-order,
+    ``pooled = cold_partial + hot_partial`` (the split path's operand
+    order), ``x`` stacked as feature row 0, then :func:`dot_interaction_ref`.
+    Returns the (B, P) packed lower triangle, P = F*(F-1)/2, F = G + 1."""
+    B, G, L = rows.shape
+    D = cold.shape[-1]
+    flat = rows.reshape(B * G, L)
+    w = None if weights is None else weights.reshape(B * G, L)
+    cold_p = _fixed_order_masked_sls(
+        cold, flat, owned.reshape(B * G, L), w,
+        None if scales is None else scales.reshape(B * G, L), out_dtype)
+    hot_p = _fixed_order_masked_sls(
+        hot, flat, is_hot.reshape(B * G, L), w, None, out_dtype)
+    pooled = (cold_p + hot_p).reshape(B, G, D)
+    feats = torch.cat([x[:, None, :].to(out_dtype), pooled], dim=1)
+    return dot_interaction_ref(feats)
