@@ -2,25 +2,41 @@
 
     python3 chip_smoke.py
 
-1. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all in parallel);
+1. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all in parallel; the two gather-once kernels
+   share the sources of the kernels they vary);
 2. kernel phase: holds each kernel against its plain PyTorch version on
    the card -- D in {16, 18, 64, 128}, fp32 and int8 tables, weights of 0/1
    (bitwise) and general weights (tolerance below), L = 7, batches that
-   no block size divides, and an empty hot tier;
+   no block size divides, and an empty hot tier -- and each gather-once
+   (dedup) kernel against the kernel it varies, bitwise for every weight,
+   on random, all-duplicate, all-unique and all-masked batches;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
-   2048, a profiled hot tier of 5 % of the pages) and checks that scores
-   are finite and in (0, 1), that fused == split bitwise, that kernel-path
-   lookups equal the plain path bitwise and kernel-path scores the plain
-   path's within tolerance, and that every kernel was launched by the
-   serve runs (launch counts are zeroed just before them and read just
-   after);
-4. times each kernel (CUDA events, L2 flushed, median), its plain version
+   2048, a hot tier of 5 % of the pages placed by ``observe`` over a
+   profile and ``plan_and_migrate``, the reference's maintenance cadence)
+   and checks that scores are finite and in (0, 1), that fused == split
+   bitwise, that kernel-path lookups equal the plain path bitwise and
+   kernel-path scores the plain path's within tolerance, and that every
+   kernel of the path was launched (launch counts are zeroed just before
+   the path's serve runs and read just after);
+4. dedup serve phase, per configuration: the same serve runs with
+   ``dedup='on'`` (at batch 32 under the 4 MiB staging budget, at batch
+   2048 with the budget raised so that it resolves on) give scores
+   bitwise equal to ``dedup='off'`` and launch both gather-once kernels;
+   ``dedup='auto'`` after ``prime_dedup_auto`` prints its resolution
+   record and the measured duplicate factor;
+5. maintenance phase at RMC4 (fp32 and int8): observes 16 batch-32
+   batches, re-plans, observes 16 batches of drifted traffic, re-plans
+   again, timing the planner and the migration apart; the dense table and
+   one-id-per-bag probe lookups stay bitwise equal across each re-plan;
+   prints the peak device memory of each migration;
+6. times each kernel (CUDA events, L2 flushed, median), its plain version
    and the library call where one exists, beside its bound
-   max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) from this run's inputs, and
-   times the serve steps at batch 32 and 2048 (host clock to a
+   max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) from this run's inputs
+   (each distinct row counted once), times ``dedup_plan``, and times the
+   serve steps at batch 32 and 2048 with dedup off and on (host clock to a
    synchronize), with the device's busy time in them from
    ``torch.profiler``.
 
@@ -28,6 +44,10 @@ The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before either.  Exits non-zero without CUDA, and when run outside the
 repository (it needs ``src/repro_torch``).
+
+Probe lookups hold one id per bag: a bag that mixes tiers pools each tier
+apart and adds the two, so a page that changes tier may change the last
+bit of a many-id bag; a one-id bag adds an exact zero.
 
 Tolerances: with general weights the kernels' fmaf accumulate and the
 plain versions' multiply-then-add may differ by one rounding per step, so
@@ -141,6 +161,18 @@ def fused_cost(cold, hot, rows, owned, is_hot, w, scales) -> dict:
     return bound(nbytes, flops)
 
 
+def dedup_cost(table, plan) -> dict:
+    """What one tier of a gather-once call must read: each live staging
+    slot's row once (in the table's storage type) and the live part of the
+    plan (row id, scale).  Per-entry inputs and outputs are the caller's
+    to add."""
+    n = int(plan.n_slots)
+    D = table.shape[1]
+    return {"rows": n, "nbytes": n * D * table.element_size()
+            + n * (4 + 4 * (plan.unique_scales is not None)),
+            "dequant_flops": n * D * (plan.unique_scales is not None)}
+
+
 def device_busy(step, state, batch, step_ms: float, reps: int = 10) -> dict:
     """Device time of one serve step from ``torch.profiler`` (the sum of
     its kernels and copies), its share of the step's host-clock time, and
@@ -199,6 +231,33 @@ def assert_equal(got, want, what):
     check(bool(torch.equal(got, want)),
           f"{what}: not bitwise equal (max err "
           f"{(got - want).abs().max().item():.3e})")
+
+
+def fused_tol(cold, hot, x, rows3, own3, hot3, w3, s3, general: bool):
+    """Tolerance of a fused kernel against its plain version: the dots'
+    order, plus, with general weights, the pooled features' SLS tolerance
+    carried through the dots."""
+    from repro_torch.kernels import ops
+    B, G, L = rows3.shape
+    D = cold.shape[1]
+    flat, N = rows3.reshape(-1, L), B * G
+    w = None if w3 is None else w3.reshape(N, L)
+    s2 = None if s3 is None else s3.reshape(N, L)
+    pooled = (ops.masked_sls(cold, flat, own3.reshape(N, L), w, s2,
+                             impl="torch")
+              + ops.masked_sls(hot, flat, hot3.reshape(N, L), w,
+                               impl="torch")).reshape(B, G, D)
+    feats = torch.cat([x[:, None], pooled], 1)
+    tol = dot_tol(feats)
+    if general:
+        a = (sls_tol(cold, flat, own3.reshape(N, L), w, s2)
+             + sls_tol(hot, flat, hot3.reshape(N, L), w, None)
+             ).reshape(B, G, D)
+        a = torch.cat([torch.zeros_like(x[:, None]), a], 1)
+        e = torch.bmm(a, feats.abs().transpose(1, 2))
+        ij = torch.tril_indices(G + 1, G + 1, -1, device=x.device)
+        tol = tol + 2 * (e + e.transpose(1, 2))[:, ij[0], ij[1]]
+    return tol
 
 
 # ---------------------------------------------------------- kernel phase
@@ -267,21 +326,9 @@ def kernel_phase(gen: torch.Generator) -> None:
                     assert_equal(fk, split, f"fused == split {tag}")
                     fp = ops.fused_front_end(table, hot, x, rows3, own3,
                                              hot3, w3, s3, impl="torch")
-                    tol = dot_tol(feats)
-                    if weighting == "general":
-                        # pooled features may differ by the SLS tolerance
-                        # too: propagate it through the dots
-                        a = (sls_tol(table, flat, own3.reshape(N, L), w,
-                                     scales)
-                             + sls_tol(hot, flat, hot3.reshape(N, L), w,
-                                       None)).reshape(B, G, D)
-                        a = torch.cat([torch.zeros_like(x[:, None]), a], 1)
-                        e = torch.bmm(a, feats.abs().transpose(1, 2))
-                        ij = torch.tril_indices(G + 1, G + 1, -1,
-                                                device="cuda")
-                        tol = tol + 2 * (e + e.transpose(1, 2))[:, ij[0],
-                                                                ij[1]]
-                    assert_close(fk, fp, tol, f"fused vs plain {tag}")
+                    assert_close(fk, fp, fused_tol(
+                        table, hot, x, rows3, own3, hot3, w3, s3,
+                        weighting == "general"), f"fused vs plain {tag}")
                     # interaction kernel vs torch.bmm, both triangles
                     for si in (False, True):
                         assert_close(ops.dot_interaction(feats, si),
@@ -308,26 +355,147 @@ def kernel_phase(gen: torch.Generator) -> None:
             split = ops.dot_interaction(torch.cat(
                 [x[:, None], (cold_p + 0.0).reshape(B, G, D)], 1))
             assert_equal(fk, split, f"fused empty-hot D={D} {storage}")
+    n_dedup = dedup_kernel_checks(gen)
     torch.cuda.synchronize()
-    print(f"kernel phase: {n_cases} cases + empty-hot cases passed; "
-          f"launches {dict((k, v.launches) for k, v in build.KERNELS.items())}",
+    print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_dedup} "
+          f"gather-once cases passed; launches "
+          f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
           flush=True)
 
 
+def dedup_kernel_checks(gen: torch.Generator) -> int:
+    """The gather-once kernels against the kernels they vary (bitwise, every
+    weight) and their plain versions (bitwise at 0/1 weights, within the
+    tolerances otherwise), on random (repeating), all-duplicate, all-unique
+    and all-masked batches."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import ops
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n_cases = 0
+    V, G, L = 5000, 8, 7
+    for D in (16, 18, 64, 128):
+        for storage in ("fp32", "int8"):
+            if storage == "int8":
+                table = torch.randint(-127, 128, (V, D), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+            else:
+                table = torch.randn((V, D), generator=gen, device="cuda")
+            hot = torch.randn((V, D), generator=gen, device="cuda")
+            row_scale = rand((V,), 1e-4, 2e-2)     # one scale per row
+            for kind in ("random", "all_dup", "all_unique", "all_masked"):
+                for B in ((37, 2053) if kind == "random" else (37,)):
+                    N = B * G
+                    if kind == "all_dup":
+                        idx = torch.full((N, L), V // 3, dtype=torch.int32,
+                                         device="cuda")
+                    elif kind == "all_unique":
+                        idx = torch.randperm(V, generator=gen, device="cuda")[
+                            :N * L].reshape(N, L).to(torch.int32)
+                    else:       # skewed: many repeats
+                        idx = (rand((N, L)) ** 4 * V).to(torch.int32)
+                    owned = (torch.zeros((N, L), dtype=torch.bool,
+                                         device="cuda")
+                             if kind == "all_masked" else rand((N, L)) < 0.6)
+                    scales = row_scale[idx] if storage == "int8" else None
+                    rows3 = idx.reshape(B, G, L)
+                    own3 = owned.reshape(B, G, L)
+                    hot3 = ~own3 & (rand((B, G, L)) < 0.7)
+                    if kind == "all_masked":
+                        hot3 = torch.zeros_like(own3)
+                    s3 = None if scales is None else scales.reshape(B, G, L)
+                    x = torch.randn((B, D), generator=gen, device="cuda")
+                    for weighting in ("01", "general"):
+                        w = ((rand((N, L)) < 0.8).float()
+                             if weighting == "01"
+                             else rand((N, L), -2.0, 2.0))
+                        tag = f"D={D} {storage} {kind} B={B} w={weighting}"
+                        plan = core_sls.dedup_plan(idx, owned, scales)
+                        k = ops.masked_sls_dedup(table, plan, owned, w)
+                        assert_equal(k, ops.masked_sls(table, idx, owned, w,
+                                                       scales),
+                                     f"masked_sls_dedup == masked_sls {tag}")
+                        p = ops.masked_sls_dedup(table, plan, owned, w,
+                                                 impl="torch")
+                        if weighting == "01":
+                            assert_equal(k, p, f"masked_sls_dedup {tag}")
+                        else:
+                            assert_close(k, p, sls_tol(table, idx, owned, w,
+                                                       scales),
+                                         f"masked_sls_dedup {tag}")
+                        w3 = w.reshape(B, G, L)
+                        fd = core_sls.fused_front_end_dense(
+                            table, hot, x, rows3, own3, hot3, w3, s3,
+                            dedup=True)
+                        assert_equal(fd, core_sls.fused_front_end_dense(
+                            table, hot, x, rows3, own3, hot3, w3, s3),
+                            f"fused_front_end_dedup == fused {tag}")
+                        fp = core_sls.fused_front_end_dense(
+                            table, hot, x, rows3, own3, hot3, w3, s3,
+                            impl="torch", dedup=True)
+                        assert_close(fd, fp, fused_tol(
+                            table, hot, x, rows3, own3, hot3, w3, s3,
+                            weighting == "general"),
+                            f"fused_front_end_dedup vs plain {tag}")
+                        n_cases += 1
+    return n_cases
+
+
 # ----------------------------------------------------------- slice phase
+BIG_BUDGET = 1 << 30    # staging budget that lets batch 2048 resolve on
+
+
+def serve_runs(b, state0, reqs, bulk, batch, big, dedup):
+    """Split and fused serve runs of ``reqs`` at ``batch`` and ``bulk`` at
+    ``big``, each from the same starting state (the maintenance cadence
+    moves the state along during a run)."""
+    from repro_torch.launch import serve as srv
+
+    def run(fe, rq, bs):
+        b.state = state0
+        return srv.serve(b, b.step(fe, dedup=dedup), rq, bs)
+
+    small = {fe: run(fe, reqs, batch) for fe in ("split", "fused")}
+    if dedup == "on":
+        # batch 32 resolved on under the default 4 MiB budget; batch 2048's
+        # staging exceeds it, so raise the budget for its signatures
+        recs = b.engine.plan_stats()["dedup"]
+        check(len(recs) == 2 and all(r["resolved"] and r["capacity_ok"]
+                                     for r in recs.values()),
+              f"dedup on at batch {batch} under the default budget: {recs}")
+        b.engine.dedup_staging_bytes = BIG_BUDGET
+    large = {fe: run(fe, bulk, big) for fe in ("split", "fused")}
+    return small, large
+
+
+def check_scores(tag, runs):
+    for name, r in runs.items():
+        s = r["scores"]
+        check(bool(np.isfinite(s).all() and (s > 0).all() and (s < 1).all()),
+              f"{tag} {name}: scores not finite in (0, 1)")
+
+
 def slice_phase(timer: Timer):
     from repro_torch.configs import get_config
+    from repro_torch.core import sls as core_sls
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve as srv
     from repro_torch.launch.serve import pad_batch
     from repro_torch.serving.batcher import Bucket
 
     n_req, batch, big = 256, 32, 2048
-    launches = {k: 0 for k in build.KERNELS}
-    details, steps = [], []
-    main_inputs = None
+    paths = {"off": ("masked_sls", "dot_interaction", "fused_front_end"),
+             "on": ("masked_sls_dedup", "dot_interaction",
+                    "fused_front_end_dedup")}
+    launches = {p: {k: 0 for k in build.KERNELS} for p in paths}
+    details, steps, dedup_lines, maint = [], [], [], []
     for arch in ("rmc1", "rmc4"):
         cfg = get_config(arch)
+        G, L, D = cfg.n_tables, cfg.pooling, cfg.emb_dim
+        F = G + 1
+        P = F * (F - 1) // 2
         for storage in ("fp32", "int8"):
             t0 = time.perf_counter()
             reqs = srv.request_stream(cfg, n_req, seed=0, storage=storage)
@@ -338,56 +506,79 @@ def slice_phase(timer: Timer):
             setup_s = time.perf_counter() - t0
             tag = f"{arch} {storage}"
             eng = b.engine
-            # ---- the main path: counts zeroed just before, read after
-            build.reset_launches()
-            res = {fe: srv.serve(b, b.step(fe), reqs, batch)
-                   for fe in ("split", "fused")}
-            bulk_res = {fe: srv.serve(b, b.step(fe), bulk, big)
-                        for fe in ("split", "fused")}
-            got = {k: v.launches for k, v in build.KERNELS.items()}
-            for k in launches:
-                check(got[k] > 0, f"{tag}: kernel {k} was not launched by "
-                                  "the serve runs")
-                launches[k] += got[k]
-            n_steps = res["split"]["batches"] + bulk_res["split"]["batches"]
+            state0 = b.state
+            # ---- each path: counts zeroed just before, read just after
+            res = {}
+            for path, kernels in paths.items():
+                build.reset_launches()
+                res[path] = serve_runs(b, state0, reqs, bulk, batch, big,
+                                       path)
+                got = {k: v.launches for k, v in build.KERNELS.items()}
+                for k in kernels:
+                    check(got[k] > 0, f"{tag}: kernel {k} was not launched "
+                                      f"by the dedup={path} serve runs")
+                    launches[path][k] += got[k]
+                print(f"{tag}: dedup={path} path launches {got}", flush=True)
+            n_steps = res["off"][0]["split"]["batches"] + \
+                res["off"][1]["split"]["batches"]
             # ---- checks on the served scores
-            for fe in ("split", "fused"):
-                for r in (res[fe], bulk_res[fe]):
-                    s = r["scores"]
-                    check(bool(np.isfinite(s).all()
-                               and (s > 0).all() and (s < 1).all()),
-                          f"{tag} {fe}: scores not finite in (0, 1)")
-            for r in (res, bulk_res):
-                check(np.array_equal(r["split"]["scores"],
-                                     r["fused"]["scores"]),
-                      f"{tag}: fused != split bitwise")
+            for i, bs in enumerate((batch, big)):
+                off, on = res["off"][i], res["on"][i]
+                check_scores(f"{tag} batch {bs}",
+                             {f"{p} {fe}": res[p][i][fe] for p in res
+                              for fe in ("split", "fused")})
+                check(np.array_equal(off["split"]["scores"],
+                                     off["fused"]["scores"]),
+                      f"{tag} batch {bs}: fused != split bitwise")
+                for fe in ("split", "fused"):
+                    check(np.array_equal(on[fe]["scores"],
+                                         off[fe]["scores"]),
+                          f"{tag} batch {bs} {fe}: dedup on != off bitwise")
+            b.state = state0
             plain = srv.serve(b, b.step("split", impl="torch"), reqs, batch)
-            err = float(np.abs(plain["scores"] - res["split"]["scores"]).max())
+            err = float(np.abs(plain["scores"]
+                               - res["off"][0]["split"]["scores"]).max())
             check(err <= 1e-5, f"{tag}: kernel vs plain serve scores differ "
                                f"by {err:.3e} > 1e-5")
             rec = eng.plan_stats()["front_end"]
             check(all(v["resolved"] == "fused" for k, v in rec.items()
                       if v["requested"] == "fused"), f"{tag}: {rec}")
+            # ---- dedup auto, primed from the stream's prefix
+            b.state = state0
+            primed = srv.prime_dedup_auto(b, reqs)
+            auto = {fe: srv.serve(b, b.step(fe, dedup="auto"), reqs, batch)
+                    for fe in ("split", "fused")}
+            for fe in ("split", "fused"):
+                check(np.array_equal(auto[fe]["scores"],
+                                     res["off"][0][fe]["scores"]),
+                      f"{tag} {fe}: dedup auto != off bitwise")
+            auto_recs = eng.plan_stats().get("dedup", {})
+            print(f"{tag}: dedup auto after priming {primed} requests: "
+                  f"hint {eng.dedup_auto_hint:.4f}; records "
+                  f"{json.dumps(auto_recs)}; measured per bucket "
+                  f"{json.dumps(b.dedup_report())}", flush=True)
+            eng.reset_plan_stats(clear_plans=True)
+            eng.dedup_staging_bytes = BIG_BUDGET
+            b.state = state0
             # ---- lookups: kernel == plain bitwise (0/1 weights)
             hb = pad_batch(bulk, Bucket(big, cfg.pooling), eng.device)
-            lk = eng.lookup(b.state, hb["indices"], hb["weights"])
-            lp = eng.lookup(b.state, hb["indices"], hb["weights"],
+            lk = eng.lookup(state0, hb["indices"], hb["weights"])
+            lp = eng.lookup(state0, hb["indices"], hb["weights"],
                             impl="torch")
             assert_equal(lk, lp, f"{tag}: lookup kernel vs plain")
-            idx = hb["indices"]
-            loc, owned, is_hot, scale = eng._address(b.state, idx)
+            loc, owned, is_hot, scale = eng._address(state0, hb["indices"])
             real = hb["weights"] != 0
             hot_share = float((is_hot & real).sum() / real.sum())
             print(f"{tag}: setup {setup_s:.1f} s; served {n_req} requests at "
                   f"batch {batch} and {big} at batch {big}, split and "
-                  f"fused; hot-tier share of lookups {hot_share:.3f}; "
-                  f"kernel-vs-plain score err {err:.2e}; launches {got} "
-                  f"over {n_steps} split + {n_steps} fused steps", flush=True)
+                  f"fused, dedup off and on; hot-tier share of lookups "
+                  f"{hot_share:.3f}; kernel-vs-plain score err {err:.2e}; "
+                  f"{n_steps} split + {n_steps} fused steps per path",
+                  flush=True)
             # ---- per-kernel timing at this config's serve shapes
             for B in (batch, big):
                 sub = {k: v[:B] for k, v in hb.items()}
-                G, L, D = cfg.n_tables, cfg.pooling, cfg.emb_dim
-                loc, owned, is_hot, scale = eng._address(b.state,
+                loc, owned, is_hot, scale = eng._address(state0,
                                                          sub["indices"])
                 x = torch.randn((B, D), device="cuda")
                 flat = loc.reshape(-1, L)
@@ -395,54 +586,85 @@ def slice_phase(timer: Timer):
                 w2 = sub["weights"].reshape(-1, L)
                 s2 = None if scale is None else scale.reshape(-1, L)
                 feats = torch.cat([x[:, None], lk[:B]], 1).contiguous()
-                F = G + 1
-                P = F * (F - 1) // 2
+                cold, hot = state0.cold, state0.hot
+                cp = core_sls.dedup_plan(flat, own2, s2)
+                hp = core_sls.dedup_plan(flat, hot2)
+                cp3 = cp._replace(slots=cp.slots.reshape(B, G, L))
+                hp3 = hp._replace(slots=hp.slots.reshape(B, G, L))
+                fused_args = (cold, hot, x, loc, owned, is_hot,
+                              sub["weights"], scale)
+                c_dd, h_dd = dedup_cost(cold, cp), dedup_cost(hot, hp)
+                n_e = flat.numel()      # per entry: slot 4 B, mask 1, w 4
                 calls = {
                     "masked_sls/cold": (
-                        lambda: ops.masked_sls(b.state.cold, flat, own2, w2,
-                                               s2),
-                        lambda: ops.masked_sls(b.state.cold, flat, own2, w2,
-                                               s2, impl="torch"),
-                        sls_cost(b.state.cold, flat, own2, w2, s2)),
-                    "masked_sls/hot": (
-                        lambda: ops.masked_sls(b.state.hot, flat, hot2, w2),
-                        lambda: ops.masked_sls(b.state.hot, flat, hot2, w2,
+                        lambda: ops.masked_sls(cold, flat, own2, w2, s2),
+                        lambda: ops.masked_sls(cold, flat, own2, w2, s2,
                                                impl="torch"),
-                        sls_cost(b.state.hot, flat, hot2, w2, None)),
+                        sls_cost(cold, flat, own2, w2, s2)),
+                    "masked_sls/hot": (
+                        lambda: ops.masked_sls(hot, flat, hot2, w2),
+                        lambda: ops.masked_sls(hot, flat, hot2, w2,
+                                               impl="torch"),
+                        sls_cost(hot, flat, hot2, w2, None)),
                     "dot_interaction": (
                         lambda: ops.dot_interaction(feats),
                         lambda: ops.dot_interaction(feats, impl="torch"),
                         interaction_cost(B, F, D, P)),
                     "fused_front_end": (
-                        lambda: ops.fused_front_end(
-                            b.state.cold, b.state.hot, x, loc, owned, is_hot,
-                            sub["weights"], scale),
-                        lambda: ops.fused_front_end(
-                            b.state.cold, b.state.hot, x, loc, owned, is_hot,
-                            sub["weights"], scale, impl="torch"),
-                        fused_cost(b.state.cold, b.state.hot, loc, owned,
-                                   is_hot, sub["weights"], scale)),
+                        lambda: ops.fused_front_end(*fused_args),
+                        lambda: ops.fused_front_end(*fused_args,
+                                                    impl="torch"),
+                        fused_cost(cold, hot, loc, owned, is_hot,
+                                   sub["weights"], scale)),
+                    "masked_sls_dedup/cold": (
+                        lambda: ops.masked_sls_dedup(cold, cp, own2, w2),
+                        lambda: ops.masked_sls_dedup(cold, cp, own2, w2,
+                                                     impl="torch"),
+                        bound(c_dd["nbytes"] + n_e * 9 + B * G * D * 4,
+                              n_e * D * 2 + c_dd["dequant_flops"])),
+                    "fused_front_end_dedup": (
+                        lambda: ops.fused_front_end_dedup(
+                            cold, hot, x, cp3, hp3, owned, is_hot,
+                            sub["weights"]),
+                        lambda: ops.fused_front_end_dedup(
+                            cold, hot, x, cp3, hp3, owned, is_hot,
+                            sub["weights"], impl="torch"),
+                        bound(c_dd["nbytes"] + h_dd["nbytes"] + n_e * 14
+                              + B * D * 4 + B * P * 4,
+                              2 * n_e * D * 2 + c_dd["dequant_flops"]
+                              + B * P * D * 2)),
                 }
                 lib = {}
                 if storage == "fp32":
+                    # row 2 of the table: the null-mask SLS (sls_pallas)
+                    calls["sls"] = (
+                        lambda: ops.masked_sls(cold, flat, None, w2),
+                        lambda: ops.masked_sls(cold, flat, None, w2,
+                                               impl="torch"),
+                        sls_cost(cold, flat, None, w2, None))
+                    lib["sls"] = lambda: torch.nn.functional.embedding_bag(
+                        flat, cold, mode="sum", per_sample_weights=w2)
                     safe = torch.where(own2, flat, torch.zeros_like(flat))
                     fw = own2.float() * w2
                     lib["masked_sls/cold"] = lambda: torch.nn.functional \
-                        .embedding_bag(safe, b.state.cold, mode="sum",
+                        .embedding_bag(safe, cold, mode="sum",
                                        per_sample_weights=fw)
+                    lib["masked_sls_dedup/cold"] = lib["masked_sls/cold"]
                 ij = torch.tril_indices(F, F, -1, device="cuda")
                 lib["dot_interaction"] = lambda: torch.bmm(
                     feats, feats.transpose(1, 2))[:, ij[0], ij[1]]
+                outs = {}
                 for name, (kfn, pfn, cost) in calls.items():
                     kout, pout = kfn(), pfn()
+                    outs[name] = kout
                     what = f"{name} {tag} batch {B}"
-                    if name.startswith("masked_sls"):       # 0/1 weights
+                    if name.startswith(("masked_sls", "sls")):  # 0/1 weights
                         assert_equal(kout, pout, what)
                     else:
                         assert_close(kout, pout, dot_tol(feats), what)
-                    if name == "fused_front_end":
+                    if name.startswith("fused_front_end"):
                         assert_equal(kout, ops.dot_interaction(feats),
-                                     f"fused == split {tag} batch {B}")
+                                     f"{name} == split {tag} batch {B}")
                     d = {"name": name, "arch": arch, "storage": storage,
                          "batch": B, "ms": timer(kfn), "plain_ms": timer(pfn),
                          "library_ms": (timer(lib[name]) if name in lib
@@ -450,30 +672,124 @@ def slice_phase(timer: Timer):
                          "max_abs_err": float((kout - pout).abs().max()),
                          **cost}
                     details.append(d)
-                    if (arch, storage, B, name) == ("rmc4", "fp32", big,
-                                                    "masked_sls/cold"):
-                        main_inputs = d
+                assert_equal(outs["masked_sls_dedup/cold"],
+                             outs["masked_sls/cold"],
+                             f"masked_sls_dedup == masked_sls {tag} {B}")
+                # ---- dedup_plan (plain PyTorch: ~10 launches per tier)
+                t = time.perf_counter()
+                for _ in range(20):
+                    core_sls.dedup_plan(flat, own2, s2)
+                host_ms = (time.perf_counter() - t) * 1e3 / 20
+                torch.cuda.synchronize()
+                entries = int(real[:B].sum())
+                f_cold = eng.dedup_factor(state0, sub["indices"],
+                                          sub["weights"])
+                dedup_lines.append({
+                    "arch": arch, "storage": storage, "batch": B,
+                    "dedup_plan_ms": timer(
+                        lambda: core_sls.dedup_plan(flat, own2, s2)),
+                    "dedup_plan_host_ms": host_ms,
+                    "factor": f_cold["factor"], "entries": entries,
+                    "unique_cold": f_cold["unique_cold"],
+                    "unique_hot": f_cold["unique_hot"],
+                    "n_slots_cold": int(cp.n_slots),
+                    "n_slots_hot": int(hp.n_slots),
+                    "staging_bytes": (int(cp.n_slots) + int(hp.n_slots))
+                    * D * 4,
+                    "gathered_bytes_dedup": c_dd["rows"] * D
+                    * cold.element_size() + h_dd["rows"] * D * 4,
+                    "gathered_bytes_per_entry": int(own2.sum()) * D
+                    * cold.element_size() + int(hot2.sum()) * D * 4})
                 # ---- serve step time: host clock to synchronize
-                for fe in ("split", "fused"):
-                    step = b.step(fe)
-                    for _ in range(3):
-                        step(b.state, sub)
-                    torch.cuda.synchronize()
-                    ts = []
-                    for _ in range(20):
-                        t = time.perf_counter()
-                        step(b.state, sub)
+                for dedup in ("off", "on"):
+                    for fe in ("split", "fused"):
+                        step = b.step(fe, dedup=dedup)
+                        for _ in range(3):
+                            step(state0, sub)
                         torch.cuda.synchronize()
-                        ts.append((time.perf_counter() - t) * 1e3)
-                    ms = statistics.median(ts)
-                    steps.append({"arch": arch, "storage": storage,
-                                  "front_end": fe, "batch": B,
-                                  "step_ms": ms,
-                                  **device_busy(step, b.state, sub, ms)})
-            del b, hb, lk, lp
+                        ts = []
+                        for _ in range(20):
+                            t = time.perf_counter()
+                            step(state0, sub)
+                            torch.cuda.synchronize()
+                            ts.append((time.perf_counter() - t) * 1e3)
+                        ms = statistics.median(ts)
+                        steps.append({"arch": arch, "storage": storage,
+                                      "front_end": fe, "dedup": dedup,
+                                      "batch": B, "step_ms": ms,
+                                      **device_busy(step, state0, sub, ms)})
+            if arch == "rmc4":
+                maint.append(maintenance_phase(b, state0, cfg, storage))
+            del b, hb, lk, lp, state0, res, auto, plain, cold, hot
             torch.cuda.empty_cache()
-    check(main_inputs is not None, "no main-path timing")
-    return launches, details, steps
+    return launches, details, steps, dedup_lines, maint
+
+
+# ----------------------------------------------------- maintenance phase
+def maintenance_phase(b, state0, cfg, storage) -> dict:
+    """Observe 16 batch-32 batches, re-plan; observe 16 batches of drifted
+    traffic, re-plan again.  The planner (host) and the migration (card)
+    are timed apart; the dense table and one-id-per-bag probe lookups must
+    stay bitwise equal across each re-plan."""
+    from repro_torch.core.paging import HOT_SHARD, host
+    from repro_torch.core.planner import plan
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.serve import pad_batch
+    from repro_torch.serving.batcher import Bucket
+
+    eng = b.engine
+    b.state = state0
+    # the hot set drifts after the first 16 batches' 512 requests
+    stream = srv.request_stream(cfg, 2 * 16 * 32, seed=2, storage=storage,
+                                drift_every=16 * 32)
+    out = {"arch": "rmc4", "storage": storage, "replans": []}
+    for half in range(2):
+        batches = [pad_batch(stream[(half * 16 + i) * 32:
+                                    (half * 16 + i + 1) * 32],
+                             Bucket(32, cfg.pooling), eng.device)
+                   for i in range(16)]
+        t = time.perf_counter()
+        for bt in batches:
+            b.observe(bt)
+        observe_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+        probe = torch.cat([bt["indices"] for bt in batches]).reshape(-1, 1, 1)
+        bags = torch.cat([bt["indices"] for bt in batches])
+        before = eng.lookup(b.state, probe)
+        bags_before = eng.lookup(b.state, bags)
+        dense_before = eng.to_dense(b.state)
+        hot_before = host(b.state.page_to_shard) == HOT_SHARD
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        table, stats = plan(eng.cfg, b.state.page_table,
+                            host(b.state.counts), eng.planner)
+        plan_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        b.state = eng.migrate(b.state, table)
+        torch.cuda.synchronize()
+        migrate_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        assert_equal(eng.lookup(b.state, probe), before,
+                     f"rmc4 {storage} replan {half + 1}: probe lookups")
+        assert_equal(eng.to_dense(b.state), dense_before,
+                     f"rmc4 {storage} replan {half + 1}: dense table")
+        bag_diff = (eng.lookup(b.state, bags) - bags_before).abs()
+        flips = int((hot_before != (host(b.state.page_to_shard)
+                                    == HOT_SHARD)).sum())
+        rec = {"replan": half + 1, "observe_ms_per_batch": observe_ms,
+               "plan_s": plan_s, "migrate_s": migrate_s,
+               "resident_bytes": resident, "peak_bytes": peak,
+               "migrate_extra_bytes": peak - resident,
+               "tier_flips": flips,
+               "bags_changed": int((bag_diff > 0).any(-1).sum()),
+               "bags_max_abs_diff": float(bag_diff.max()),
+               **{k: stats[k] for k in ("moved_pages", "hot_pages",
+                                        "sticky_kept")}}
+        out["replans"].append(rec)
+        print(f"maintenance rmc4 {storage}: {json.dumps(rec)}", flush=True)
+        del dense_before, before, bags_before
+    return out
 
 
 def main() -> None:
@@ -492,8 +808,8 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
     t = time.perf_counter()
     paths = build.build_all()
-    print(f"built {len(paths)} kernels in {time.perf_counter() - t:.1f} s",
-          flush=True)
+    print(f"built {len(paths)} libraries ({len(build.KERNELS)} kernels) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     for name, p in paths.items():
         log = p.with_suffix(".log").read_text() if p.with_suffix(
             ".log").exists() else ""
@@ -508,27 +824,35 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     kernel_phase(gen)
     timer = Timer()
-    launches, details, steps = slice_phase(timer)
+    launches, details, steps, dedup_lines, maint = slice_phase(timer)
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
         print("serve_step " + json.dumps(s), flush=True)
+    for d in dedup_lines:
+        print("dedup " + json.dumps(d), flush=True)
+    for m in maint:
+        print("maintenance " + json.dumps(m), flush=True)
 
-    pick = {"masked_sls": "masked_sls/cold",
-            "dot_interaction": "dot_interaction",
-            "fused_front_end": "fused_front_end"}
+    # (timing row, the path whose serve runs count the kernel's launches)
+    pick = {"masked_sls": ("masked_sls/cold", "off"),
+            "dot_interaction": ("dot_interaction", "off"),
+            "fused_front_end": ("fused_front_end", "off"),
+            "masked_sls_dedup": ("masked_sls_dedup/cold", "on"),
+            "fused_front_end_dedup": ("fused_front_end_dedup", "on")}
     kernels = []
     for k in build.KERNELS.values():
-        d = next(x for x in details if x["name"] == pick[k.name]
+        row, path = pick[k.name]
+        d = next(x for x in details if x["name"] == row
                  and x["arch"] == "rmc4" and x["storage"] == "fp32"
                  and x["batch"] == 2048)
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces, "launches": launches[path][k.name],
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-            "shape": f"rmc4 fp32 batch 2048 ({pick[k.name]})"})
+            "shape": f"rmc4 fp32 batch 2048 ({row})"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,9 +5,6 @@ stacked) is cut into fixed-size pages; every page lives in exactly one
 place: the replicated HOT tier or one shard of the COLD tier.  Lookups go
 through the ``page_to_shard`` / ``page_to_slot`` indirection, so results do
 not depend on the placement.
-
-``placement_gather_indices`` (migration) waits for the planner slice
-(``ROADMAP.md`` queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -109,3 +106,46 @@ def locate(cfg: PagingConfig, table: PageTable, row_idx: torch.Tensor
     local_row = table.page_to_slot[page].long() * ps + offset
     is_hot = shard == HOT_SHARD
     return shard, local_row, is_hot
+
+
+def host(x) -> np.ndarray:
+    """A host numpy view of a tensor (on any device) or an array-like."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def placement_gather_indices(cfg: PagingConfig, old: PageTable, new: PageTable
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-level gather maps realizing a migration (host-side, numpy).
+
+    Returns (cold_src, hot_src): for each destination row in the new cold
+    storage (resp. new hot tier), the source position in the *concatenated*
+    old storage [cold_flat | hot_flat].  Unmapped destination rows point at
+    source 0 (their content is unused -- no page maps to them).
+    """
+    ps = cfg.page_size
+    o_shard, o_slot = host(old.page_to_shard), host(old.page_to_slot)
+    n_shard, n_slot = host(new.page_to_shard), host(new.page_to_slot)
+
+    def src_base(shard, slot):
+        # position of a page's first row in [cold_flat | hot_flat]
+        cold = shard.astype(np.int64) * cfg.rows_per_shard + slot * ps
+        hot = cfg.cold_rows_total + slot.astype(np.int64) * ps
+        return np.where(shard == HOT_SHARD, hot, cold)
+
+    src = src_base(o_shard, o_slot)                      # (P,)
+    cold_src = np.zeros(cfg.cold_rows_total, dtype=np.int64)
+    hot_src = np.zeros(cfg.hot_rows, dtype=np.int64)
+
+    row_offsets = np.arange(ps)
+    cold_mask = n_shard != HOT_SHARD
+    cold_pages = np.nonzero(cold_mask)[0]
+    dst = (n_shard[cold_pages].astype(np.int64) * cfg.rows_per_shard
+           + n_slot[cold_pages].astype(np.int64) * ps)
+    cold_src[(dst[:, None] + row_offsets).ravel()] = (
+        src[cold_pages][:, None] + row_offsets).ravel()
+
+    hot_pages = np.nonzero(~cold_mask)[0]
+    dsth = n_slot[hot_pages].astype(np.int64) * ps
+    hot_src[(dsth[:, None] + row_offsets).ravel()] = (
+        src[hot_pages][:, None] + row_offsets).ravel()
+    return cold_src, hot_src

@@ -13,10 +13,15 @@ State is an ``EngineState`` of tensors; every method is functional.  State
 crosses from the reference engine as the placement-free triple of
 ``export_state`` plus a page table, into :meth:`pack_state`.
 
+Lookups take the gather-once knob ``dedup`` (off / auto / on), resolved
+once per signature (:meth:`_resolve_dedup`).  Maintenance is the
+reference's: :meth:`observe` keeps the page-access histogram, and
+:meth:`plan_and_migrate` places the hot tier with ``core.planner`` and
+moves the pages (:meth:`migrate`).
+
 Not ported yet, each raising and naming its ``ROADMAP.md`` item:
 ``mode="pond"`` and tp > 1 (queue 1 item 10), ``combine="psum_scatter"``
-(queue 1 item 10), ``dedup`` (queue 1 item 7), ``observe`` and the planner
-(queue 1 item 6).
+(queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core import sls as sls_ops
 from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
-                                     initial_page_table, locate)
+                                     host, initial_page_table, locate,
+                                     placement_gather_indices)
+from repro_torch.core.planner import PlannerConfig, plan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
@@ -39,11 +46,10 @@ _TODO = {
           "item 10)",
     "psum_scatter": "combine='psum_scatter' is not ported yet (ROADMAP.md "
                     "queue 1 item 10)",
-    "dedup": "dedup='auto'/'on' is not ported yet (ROADMAP.md queue 1 "
-             "item 7)",
-    "observe": "observe and the planner are not ported yet (ROADMAP.md "
-               "queue 1 item 6)",
 }
+
+FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
+#                      its fused staging budget counts
 
 
 @dataclasses.dataclass
@@ -70,11 +76,19 @@ class PIFSEmbeddingEngine:
     TIER_MODES = ("all", "hot_only")
 
     def __init__(self, paging: PagingConfig, device: DeviceLike = None,
-                 dedup: str = "off", validate_ids: bool = False):
+                 planner: Optional[PlannerConfig] = None,
+                 dedup: str = "off", dedup_auto_threshold: float = 1.5,
+                 dedup_staging_bytes: int = 4 << 20,
+                 validate_ids: bool = False):
         """``device`` defaults to the card (raises without CUDA; pass
-        ``"cpu"`` for the CPU).  ``validate_ids`` makes lookups check ids
-        against the padded address space on the host and raise, instead
-        of reading whatever an out-of-range id addresses."""
+        ``"cpu"`` for the CPU).  ``dedup`` is the engine-wide default of
+        the gather-once knob; ``dedup_auto_threshold`` the expected
+        duplicate factor above which 'auto' turns it on, and
+        ``dedup_staging_bytes`` the staging budget above which a signature
+        falls back to the per-entry gather (the reference's 4 MiB).
+        ``validate_ids`` makes lookups check ids against the padded
+        address space on the host and raise, instead of reading whatever
+        an out-of-range id addresses."""
         if paging.n_shards != 1:
             raise NotImplementedError(_TODO["tp"])
         if dedup not in self.DEDUP_MODES:
@@ -82,9 +96,17 @@ class PIFSEmbeddingEngine:
                              f"expected one of {self.DEDUP_MODES}")
         self.cfg = paging
         self.device = resolve_device(device)
+        self.planner = planner or PlannerConfig()
         self.default_dedup = dedup
+        self.dedup_auto_threshold = dedup_auto_threshold
+        self.dedup_staging_bytes = dedup_staging_bytes
+        # a measured duplicate factor that 'auto' takes as evidence beside
+        # the histogram's expectation (set by serving's prime_dedup_auto)
+        self.dedup_auto_hint: Optional[float] = None
         self.validate_ids = validate_ids
+        self._dedup_plans: dict = {}   # key -> dedup resolution record
         self._fe_plans: dict = {}      # key -> front-end resolution record
+        self._calls = 0                # lookups since reset_plan_stats
 
     @property
     def quantized(self) -> bool:
@@ -246,8 +268,6 @@ class PIFSEmbeddingEngine:
             raise NotImplementedError(_TODO["pond"])
         if combine == "psum_scatter":
             raise NotImplementedError(_TODO["psum_scatter"])
-        if dedup != "off":
-            raise NotImplementedError(_TODO["dedup"])
         return dedup
 
     def lookup(self, state: EngineState, indices: torch.Tensor,
@@ -258,15 +278,23 @@ class PIFSEmbeddingEngine:
         """Pooled lookup: indices (B, G, L) int32 global row ids, optional
         weights (B, G, L) f32 -> (B, G, D) f32.  ``tiers='hot_only'`` reads
         the hot tier only (cold contributions are exact zeros; the serving
-        brown-out rung).  ``impl``: see ``kernels/ops.py``."""
-        self._check_knobs(mode, combine, dedup)
+        brown-out rung).  ``impl``: see ``kernels/ops.py``.
+
+        ``dedup`` ('off' | 'auto' | 'on', None = the engine default):
+        gather-once coalescing, bitwise equal to 'off'.  The decision is
+        frozen per signature and recorded in ``plan_stats()['dedup']``."""
+        dedup = self._check_knobs(mode, combine, dedup)
         if tiers not in self.TIER_MODES:
             raise ValueError(f"unknown tiers {tiers!r}; "
                              f"expected one of {self.TIER_MODES}")
         if self.validate_ids:
             self._check_ids(indices)
+        key = ("lookup", mode, combine, impl, self.cfg.storage, dedup, tiers,
+               tuple(indices.shape), weights is not None)
+        dedup_on = self._resolve_dedup(key, dedup, state, indices)
+        self._calls += 1
         return self._lookup_block(state, indices, weights, impl=impl,
-                                  tiers=tiers)
+                                  tiers=tiers, dedup=dedup_on)
 
     def lookup_interact(self, state: EngineState, indices: torch.Tensor,
                         dense_feature: torch.Tensor,
@@ -280,8 +308,9 @@ class PIFSEmbeddingEngine:
         0) -> (B, P) packed lower triangle.  ``front_end='split'`` pools
         then interacts with two kernels; ``'fused'`` resolves, on one
         device, to the single three-phase kernel.  The resolution is
-        recorded in ``plan_stats()['front_end']``.  Split and fused are
-        bitwise equal."""
+        recorded in ``plan_stats()['front_end']``, the ``dedup`` one as in
+        :meth:`lookup`.  Split and fused, dedup on or off, are bitwise
+        equal."""
         dedup = self._check_knobs(mode, combine, dedup)
         if front_end not in self.FRONT_END_MODES:
             raise ValueError(f"unknown front_end {front_end!r}; "
@@ -298,10 +327,17 @@ class PIFSEmbeddingEngine:
         rec = self._fe_plans.get(key)
         if rec is None:
             rec = self._fe_plans[key] = self._resolve_front_end(front_end)
-        if rec["resolved"] == "fused":
+        fused = rec["resolved"] == "fused"
+        dedup_on = self._resolve_dedup(
+            key, dedup, state, indices,
+            fused_blocks=FUSED_BLOCK_B if fused else None)
+        self._calls += 1
+        if fused:
             return self._interact_block_fused(state, indices, dense_feature,
-                                              weights, impl=impl)
-        pooled = self._lookup_block(state, indices, weights, impl=impl)
+                                              weights, impl=impl,
+                                              dedup=dedup_on)
+        pooled = self._lookup_block(state, indices, weights, impl=impl,
+                                    dedup=dedup_on)
         feats = torch.cat([dense_feature[:, None, :], pooled], dim=1)
         return kernel_ops.dot_interaction(feats, impl=impl)
 
@@ -317,26 +353,223 @@ class PIFSEmbeddingEngine:
         return {"requested": front_end, "resolved": resolved,
                 "reason": reason, "tp": 1}
 
+    # ------------------------------------------------------------ dedup
+    def _resolve_dedup(self, key, dedup: str, state: EngineState,
+                       indices: torch.Tensor,
+                       fused_blocks: Optional[int] = None) -> bool:
+        """Freeze the gather-once decision for one signature (the
+        reference's, at dp = 1).  'on' falls back when the worst-case
+        staging exceeds ``dedup_staging_bytes``; 'auto' also needs the best
+        duplicate-factor evidence -- the page histogram's expectation, the
+        factor measured on this first batch, or the serving hint -- to
+        reach ``dedup_auto_threshold``.  Runs on the host once per
+        signature; the record goes to ``plan_stats()['dedup']``."""
+        if dedup == "off":
+            return False
+        rec = self._dedup_plans.get(key)
+        if rec is not None:
+            return rec["resolved"]
+        B, G, L = indices.shape
+        n_entries = max(B, 1) * G * L
+        D = self.cfg.dim
+        if fused_blocks is None:
+            # split: the hot and cold accumulates run one after the other,
+            # so one (n_entries, D) fp32 staging is live at a time
+            staging_bytes = n_entries * D * 4
+        else:
+            # fused: both tiers' stagings plus the two (BB*F, D) per-tier
+            # feature tiles of the reference's kernel
+            b_local = max(B, 1)
+            BB = max(1, min(fused_blocks, b_local))
+            while b_local % BB:
+                BB //= 2
+            staging_bytes = 2 * n_entries * D * 4 + 2 * BB * (G + 1) * D * 4
+        capacity_ok = staging_bytes <= self.dedup_staging_bytes
+        expected = self._expected_dup_factor(host(state.counts), n_entries)
+        measured = self.dedup_factor(state, indices)["factor"]
+        if dedup == "on":
+            resolved = capacity_ok
+        else:
+            signals = [x for x in (expected, measured, self.dedup_auto_hint)
+                       if x is not None]
+            resolved = capacity_ok and max(signals) >= \
+                self.dedup_auto_threshold
+        self._dedup_plans[key] = {
+            "requested": dedup, "resolved": bool(resolved),
+            "capacity_ok": bool(capacity_ok),
+            "expected_factor": float(expected),
+            "measured_factor": measured,
+            "hint_factor": self.dedup_auto_hint,
+        }
+        return bool(resolved)
+
+    def _expected_dup_factor(self, counts: np.ndarray, n_entries: int
+                             ) -> float:
+        """Expected duplicate factor of ``n_entries`` draws from the row
+        distribution the page histogram implies (uniform within a page):
+        ``n / E[unique]``, ``E[unique] = sum_r 1 - (1 - p_r)^n``.  An
+        all-zero histogram is a uniform prior over all rows."""
+        c = np.asarray(counts, np.float64)
+        ps = self.cfg.page_size
+        tot = c.sum()
+        if tot <= 0:
+            p = np.full(1, 1.0 / max(self.cfg.padded_rows, 1))
+            rows_per_p = np.full(1, float(self.cfg.padded_rows))
+        else:
+            p = c / (tot * ps)
+            rows_per_p = np.full_like(c, float(ps))
+        e_unique = float((rows_per_p * -np.expm1(
+            n_entries * np.log1p(-np.minimum(p, 1 - 1e-12)))).sum())
+        return n_entries / max(e_unique, 1.0)
+
+    def dedup_factor(self, state: EngineState, indices,
+                     weights=None) -> dict:
+        """Measured duplicate-access factor of one batch: a host replay of
+        what the gather-once datapath gathers (unique owned cold rows plus
+        unique hot rows), counting weight != 0 entries only.  Returns
+        entries, unique_cold / unique_hot / unique_rows and ``factor =
+        entries / unique_rows``."""
+        c = self.cfg
+        idx = host(indices).reshape(-1)
+        if weights is not None:
+            idx = idx[host(weights).reshape(-1) != 0]
+        ps = c.page_size
+        # clamp as the device gathers do: the probe never fails on traffic
+        # the engine itself would serve
+        page = np.clip(idx // ps, 0, c.num_pages - 1)
+        shard = host(state.page_to_shard)[page]
+        local = host(state.page_to_slot)[page].astype(np.int64) * ps \
+            + idx % ps
+        unique_cold = int(np.unique(local[shard == 0]).size)
+        unique_hot = int(np.unique(local[shard == HOT_SHARD]).size)
+        unique_rows = unique_cold + unique_hot
+        return {"entries": int(idx.size), "unique_cold": unique_cold,
+                "unique_hot": unique_hot, "unique_rows": unique_rows,
+                "factor": idx.size / max(unique_rows, 1)}
+
     def plan_stats(self) -> dict:
-        """One front-end resolution record per ``lookup_interact``
-        signature, under ``'front_end'``."""
-        return {"front_end": {self._key_label(k): dict(v)
-                              for k, v in self._fe_plans.items()}}
+        """Lookups since the last reset (``calls``); one front-end
+        resolution record per ``lookup_interact`` signature under
+        ``'front_end'``; and, once a lookup asked for ``dedup`` 'auto' or
+        'on', one dedup resolution record per such signature under
+        ``'dedup'``."""
+        out = {"calls": self._calls,
+               "front_end": {self._key_label(k): dict(v)
+                             for k, v in self._fe_plans.items()}}
+        if self._dedup_plans:
+            out["dedup"] = {self._key_label(k): dict(v)
+                            for k, v in self._dedup_plans.items()}
+        return out
+
+    def reset_plan_stats(self, clear_plans: bool = False) -> None:
+        """Zero the call counter; ``clear_plans`` also drops the dedup and
+        front-end resolution records, so every signature resolves again
+        (against the histogram as it is then)."""
+        if clear_plans:
+            self._dedup_plans.clear()
+            self._fe_plans.clear()
+        self._calls = 0
 
     @staticmethod
     def _key_label(key) -> str:
-        (_, mode, combine, impl, storage, dedup, front_end, shape,
-         weighted) = key
-        return (f"interact:{mode}/{combine}/{impl}/{storage}"
-                f"/dedup={dedup}/fe={front_end}"
-                f"/idx={'x'.join(map(str, shape))}" + ("+w" if weighted
-                                                       else ""))
+        if key[0] == "interact":
+            (_, mode, combine, impl, storage, dedup, front_end, shape,
+             weighted) = key
+            head, tail = "interact:", f"/fe={front_end}"
+        else:
+            (_, mode, combine, impl, storage, dedup, tiers, shape,
+             weighted) = key
+            head, tail = "", "" if tiers == "all" else f"/{tiers}"
+        return (f"{head}{mode}/{combine}/{impl}/{storage}/dedup={dedup}"
+                f"{tail}/idx={'x'.join(map(str, shape))}"
+                + ("+w" if weighted else ""))
 
-    def observe(self, state: EngineState, indices, weights=None):
-        raise NotImplementedError(_TODO["observe"])
+    # ------------------------------------------------------ maintenance
+    def observe(self, state: EngineState, indices: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> EngineState:
+        """Add a batch to the page-access histogram (the paper's profiler).
+        An entry counts 1 iff its weight (when given) is non-zero, so bucket
+        padding never skews the ranking; ids whose page lies outside the
+        table are dropped, as the reference's scatter drops them."""
+        c = self.cfg
+        page = indices.reshape(-1).long() // c.page_size
+        inc = torch.ones(page.shape, dtype=torch.float32, device=page.device)
+        if weights is not None:
+            inc = (weights.reshape(-1) != 0).to(torch.float32)
+        ok = (page >= 0) & (page < c.num_pages)
+        local = torch.zeros(c.num_pages, dtype=torch.float32,
+                            device=state.counts.device).index_add_(
+            0, torch.where(ok, page, 0), torch.where(ok, inc, 0.0))
+        return dataclasses.replace(state, counts=state.counts + local)
 
-    def plan_and_migrate(self, state: EngineState):
-        raise NotImplementedError(_TODO["observe"])
+    def plan_and_migrate(self, state: EngineState
+                         ) -> Tuple[EngineState, dict]:
+        """Host-side plan (hotness + spreading, ``core.planner``) from the
+        histogram, then the move (:meth:`migrate`)."""
+        new_table, stats = plan(self.cfg, state.page_table,
+                                host(state.counts), self.planner)
+        return self.migrate(state, new_table), stats
+
+    def migrate(self, state: EngineState, new_table: PageTable,
+                count_decay: float = 0.5) -> EngineState:
+        """Execute a placement change as a row gather (cache-line-granular
+        migration, paper IV-B4).  int8: cold->cold moves codes verbatim,
+        promotion dequantizes into the fp32 hot tier and demotion
+        re-quantizes with the page's carried scale, so lookups are
+        placement-invariant in the quantized domain.  ``count_decay``
+        scales the histogram after the move.
+
+        One device holds the whole cold tier, so no all-gather: the new
+        tiers gather from the old cold and hot tiers apart, and the
+        concatenation the reference gathers from is never built."""
+        c = self.cfg
+        C = c.cold_rows_total
+        cold_src, hot_src = placement_gather_indices(c, state.page_table,
+                                                     new_table)
+        dev = self.device
+
+        def split(src):
+            """Row sources as (from the cold tier, positions taking a hot
+            row, the hot rows they take)."""
+            from_hot = src >= C
+            pos = np.nonzero(from_hot)[0]
+            return (torch.as_tensor(np.where(from_hot, 0, src), device=dev),
+                    torch.as_tensor(pos, device=dev),
+                    torch.as_tensor(src[pos] - C, device=dev))
+
+        cs_cold, cs_pos, cs_hot = split(cold_src)
+        hs_cold, hs_pos, hs_hot = split(hot_src)
+        new_cold = state.cold[cs_cold]
+        if self.quantized:
+            new_hot = quant.dequantize_rows(
+                state.cold[hs_cold], self._hot_row_scales(state, new_table))
+            # demotions: re-quantize the hot rows on their carried scale
+            old_hot_q = quant.quantize_rows(
+                state.hot, self._hot_row_scales(state, state.page_table))
+            new_cold[cs_pos] = old_hot_q[cs_hot]
+        else:
+            new_hot = state.cold[hs_cold]
+            new_cold[cs_pos] = state.hot[cs_hot]
+        new_hot[hs_pos] = state.hot[hs_hot]
+        return EngineState(
+            cold=new_cold, hot=new_hot, page_scales=state.page_scales,
+            page_to_shard=self._as(new_table.page_to_shard, torch.int32),
+            page_to_slot=self._as(new_table.page_to_slot, torch.int32),
+            counts=state.counts * count_decay)
+
+    def _hot_row_scales(self, state: EngineState, table: PageTable
+                        ) -> torch.Tensor:
+        """Per hot-tier row, the carried scale of the page in that slot
+        under ``table`` (page 0's for empty slots, whose content is
+        unused) -> (hot_rows, 1)."""
+        c = self.cfg
+        shard, slot = host(table.page_to_shard), host(table.page_to_slot)
+        per_slot = np.zeros(c.hot_pages, dtype=np.int64)
+        hot = shard == HOT_SHARD
+        per_slot[slot[hot]] = np.nonzero(hot)[0]
+        page = torch.as_tensor(np.repeat(per_slot, c.page_size),
+                               device=self.device)
+        return state.page_scales[page][:, None]
 
     # ----------------------------------------------------------- the blocks
     def _address(self, state: EngineState, idx: torch.Tensor):
@@ -355,7 +588,8 @@ class PIFSEmbeddingEngine:
 
     def _lookup_block(self, state: EngineState, idx: torch.Tensor,
                       weights: Optional[torch.Tensor], *, impl: str,
-                      tiers: str = "all") -> torch.Tensor:
+                      tiers: str = "all", dedup: bool = False
+                      ) -> torch.Tensor:
         """The split datapath: per-tier masked partial SLS, then
         ``cold + hot``."""
         b, G, L = idx.shape
@@ -363,25 +597,26 @@ class PIFSEmbeddingEngine:
             state, idx.reshape(b * G, L))
         w = None if weights is None else weights.reshape(b * G, L)
         hot_out = sls_ops.masked_partial_sls_dense(
-            state.hot, local_row, is_hot, w, impl=impl)
+            state.hot, local_row, is_hot, w, impl=impl, dedup=dedup)
         if tiers == "hot_only":
             return hot_out.reshape(b, G, -1)
         cold_part = sls_ops.masked_partial_sls_dense(
-            state.cold, local_row, owned, w, impl=impl, scales=scale)
+            state.cold, local_row, owned, w, impl=impl, scales=scale,
+            dedup=dedup)
         # the reference psums cold_part over the tp axis (the identity at
         # tp = 1) and adds hot_out: keep that operand order
         return (cold_part + hot_out).reshape(b, G, -1)
 
     def _interact_block_fused(self, state: EngineState, idx: torch.Tensor,
                               x: torch.Tensor,
-                              weights: Optional[torch.Tensor], *, impl: str
-                              ) -> torch.Tensor:
+                              weights: Optional[torch.Tensor], *, impl: str,
+                              dedup: bool = False) -> torch.Tensor:
         """The fused datapath: the same address math as
         :meth:`_lookup_block`, then the single-kernel SLS -> interaction."""
         local_row, owned, is_hot, scale = self._address(state, idx)
         return sls_ops.fused_front_end_dense(
             state.cold, state.hot, x, local_row, owned, is_hot,
-            weights=weights, scales=scale, impl=impl)
+            weights=weights, scales=scale, impl=impl, dedup=dedup)
 
 
 def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,

@@ -1,9 +1,13 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+Each ``csrc/<stem>.cu`` has a plain C interface and compiles on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o build/kernels/<stem>-<hash>.so csrc/<stem>.cu
+
+A gather-once (dedup) kernel shares its source, and its accumulate, with
+the kernel it varies: ``masked_sls_dedup`` lives in ``masked_sls.cu`` and
+``fused_front_end_dedup`` in ``fused_front_end.cu``.
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 The build runs at first use; every missing library is compiled by its own
@@ -35,13 +39,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 @dataclasses.dataclass
 class KernelInfo:
-    name: str          # C entry point and source stem
+    name: str          # C entry point
     replaces: str      # the Pallas TPU kernel (file:line of its pallas_call)
+    stem: str = ""     # source stem (csrc/<stem>.cu); defaults to ``name``
     launches: int = 0  # launches by the wrapper since the last reset
+
+    def __post_init__(self):
+        self.stem = self.stem or self.name
 
     @property
     def source(self) -> str:
-        return str((CSRC / f"{self.name}.cu").relative_to(REPO_ROOT))
+        return str((CSRC / f"{self.stem}.cu").relative_to(REPO_ROOT))
 
 
 KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
@@ -52,6 +60,12 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
                "src/repro/kernels/interaction.py:64 (dot_interaction_pallas)"),
     KernelInfo("fused_front_end",
                "src/repro/kernels/sls.py:614 (fused_front_end_pallas)"),
+    KernelInfo("masked_sls_dedup",
+               "src/repro/kernels/sls.py:304 (masked_sls_dedup_pallas)",
+               stem="masked_sls"),
+    KernelInfo("fused_front_end_dedup",
+               "src/repro/kernels/sls.py:683 (fused_front_end_dedup_pallas)",
+               stem="fused_front_end"),
 )}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -80,17 +94,18 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-def lib_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest()}.so"
+def lib_path(stem: str) -> Path:
+    return BUILD_DIR / f"{stem}-{_digest()}.so"
 
 
 def build_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Path]:
-    """Compile every library that is not built yet, one ``nvcc`` each, all
-    in parallel.  Raises with the compiler's output if one fails.  The
-    ``-Xptxas -v`` report (registers, shared memory, spills) is kept in
-    ``build/kernels/<name>-<hash>.log``."""
+    """Compile the library of every named kernel that is not built yet, one
+    ``nvcc`` per source, all in parallel; returns the libraries by source
+    stem.  Raises with the compiler's output if one fails.  The ``-Xptxas
+    -v`` report (registers, shared memory, spills) is kept in
+    ``build/kernels/<stem>-<hash>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: lib_path(n) for n in names}
+    paths = {KERNELS[n].stem: lib_path(KERNELS[n].stem) for n in names}
     procs = {}
     for n, out in paths.items():
         if out.exists():
@@ -116,13 +131,15 @@ def build_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Path]:
 
 
 def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry ``name`` of ``csrc/<name>.cu``, built and loaded on first
-    use, with its ``argtypes`` set and an ``int`` (cudaError_t) result."""
+    """The C entry ``name`` of its kernel's source, built and loaded on
+    first use, with its ``argtypes`` set and an ``int`` (cudaError_t)
+    result."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
-        fn = getattr(_LIBS[name], name)
+        stem = KERNELS[name].stem
+        if stem not in _LIBS:
+            _LIBS[stem] = ctypes.CDLL(str(build_all([name])[stem]))
+        fn = getattr(_LIBS[stem], name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn

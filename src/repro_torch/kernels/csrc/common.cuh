@@ -6,7 +6,8 @@
 
 // Load VEC consecutive row elements as float.  VEC * sizeof(T) == 16 uses
 // 16-byte vector loads (the caller guarantees 16-byte alignment of the row
-// chunk); VEC == 1 is the scalar path for any other D.
+// chunk), 4 int8 codes one 4-byte load; VEC == 1 is the scalar path for any
+// other D.
 template <typename T, int VEC>
 __device__ __forceinline__ void load_row(const T* __restrict__ p, float* v) {
   if constexpr (sizeof(T) == 4 && VEC % 4 == 0) {
@@ -20,6 +21,9 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, float* v) {
     const int8_t* b = reinterpret_cast<const int8_t*>(&t);
 #pragma unroll
     for (int k = 0; k < 16; ++k) v[k] = static_cast<float>(b[k]);
+  } else if constexpr (sizeof(T) == 1 && VEC == 4) {
+    const char4 t = __ldg(reinterpret_cast<const char4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] = static_cast<float>(__ldg(p + k));

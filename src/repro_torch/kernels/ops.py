@@ -72,3 +72,40 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
                                     weights, scales)
     return ref.fused_front_end_ref(cold, hot, x, rows, owned, is_hot,
                                    weights, scales)
+
+
+def masked_sls_dedup(table: torch.Tensor, plan, owned: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     impl: str = "cuda") -> torch.Tensor:
+    """Gather-once masked partial SLS: (N, L) -> (N, D) float32, each unique
+    owned row gathered (and dequantized) once.  ``plan`` is a
+    ``core.sls.DedupPlan`` of the same bags.  Bitwise equal to
+    :func:`masked_sls` on the same entries."""
+    _sls.check_masked_sls_dedup(table, plan.unique_rows, plan.slots, owned,
+                                plan.n_slots, weights, plan.unique_scales)
+    if _use_kernel(impl, table):
+        return _sls.masked_sls_dedup(table, plan.unique_rows, plan.slots,
+                                     owned, plan.n_slots, weights,
+                                     plan.unique_scales)
+    return ref.masked_sls_dedup_ref(table, plan.unique_rows, plan.slots,
+                                    owned, weights, plan.unique_scales)
+
+
+def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
+                          x: torch.Tensor, cold_plan, hot_plan,
+                          owned: torch.Tensor, is_hot: torch.Tensor,
+                          weights: Optional[torch.Tensor] = None,
+                          impl: str = "cuda") -> torch.Tensor:
+    """Gather-once fused front end: (B, P), one ``core.sls.DedupPlan`` per
+    tier (slots (B, G, L); cold with scales, hot without).  Bitwise equal
+    to :func:`fused_front_end` on the same entries."""
+    cp, hp = cold_plan, hot_plan
+    args = (cold, hot, x, cp.unique_rows, cp.slots, cp.n_slots,
+            hp.unique_rows, hp.slots, hp.n_slots, owned, is_hot, weights,
+            cp.unique_scales)
+    _sls.check_fused_front_end_dedup(*args)
+    if _use_kernel(impl, cold):
+        return _sls.fused_front_end_dedup(*args)
+    return ref.fused_front_end_dedup_ref(
+        cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
+        owned, is_hot, weights, cp.unique_scales)

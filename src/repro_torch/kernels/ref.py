@@ -68,7 +68,15 @@ def _fixed_order_masked_sls(table: torch.Tensor, indices: torch.Tensor,
         rows = rows * scales[..., None].to(out_dtype)
     if weights is not None:
         f = f * weights.to(out_dtype)
-    out = torch.zeros((B, D), dtype=out_dtype, device=table.device)
+    return _fixed_order_accumulate(rows, f)
+
+
+def _fixed_order_accumulate(rows: torch.Tensor, f: torch.Tensor
+                            ) -> torch.Tensor:
+    """out[b] = sum_l f[b,l] * rows[b,l] in the order l = 0..L-1: the
+    shared tail of every plain SLS version."""
+    B, L, D = rows.shape
+    out = torch.zeros((B, D), dtype=rows.dtype, device=rows.device)
     for l in range(L):
         out = out + f[:, l, None] * rows[:, l]
     return out
@@ -82,6 +90,32 @@ def masked_sls_quant_ref(table_q: torch.Tensor, indices: torch.Tensor,
     dequant scales (the page scale gathered per pooling entry)."""
     return _fixed_order_masked_sls(table_q, indices, owned, weights, scales,
                                    out_dtype)
+
+
+def masked_sls_dedup_ref(table: torch.Tensor, unique_rows: torch.Tensor,
+                         slots: torch.Tensor, owned: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None,
+                         unique_scales: Optional[torch.Tensor] = None,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Gather-once masked partial SLS (staging semantics) -- the plain
+    version of the ``masked_sls_dedup`` kernel.
+
+    unique_rows (U,) row per staging slot (sentinel-padded, clamped into
+    range at the gather); slots (B, L) staging slot per entry; optional
+    unique_scales (U,) per-slot dequant scales.  Each unique row is
+    gathered and dequantized once into a (U, D) staging buffer, then the
+    fixed l-order accumulate reads it through ``slots``.  Given per-entry
+    ``scales[b,l] == unique_scales[slots[b,l]]`` the operands equal the
+    per-entry gather's, so this equals :func:`_fixed_order_masked_sls`
+    bitwise."""
+    V = table.shape[0]
+    staging = table[unique_rows.long().clamp(max=V - 1)].to(out_dtype)
+    if unique_scales is not None:
+        staging = staging * unique_scales[:, None].to(out_dtype)
+    f = owned.to(out_dtype)
+    if weights is not None:
+        f = f * weights.to(out_dtype)
+    return _fixed_order_accumulate(staging[slots.long()], f)
 
 
 def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
@@ -116,6 +150,33 @@ def fused_front_end_ref(cold: torch.Tensor, hot: torch.Tensor,
         None if scales is None else scales.reshape(B * G, L), out_dtype)
     hot_p = _fixed_order_masked_sls(
         hot, flat, is_hot.reshape(B * G, L), w, None, out_dtype)
+    pooled = (cold_p + hot_p).reshape(B, G, D)
+    feats = torch.cat([x[:, None, :].to(out_dtype), pooled], dim=1)
+    return dot_interaction_ref(feats)
+
+
+def fused_front_end_dedup_ref(cold: torch.Tensor, hot: torch.Tensor,
+                              x: torch.Tensor, c_unique: torch.Tensor,
+                              c_slots: torch.Tensor, h_unique: torch.Tensor,
+                              h_slots: torch.Tensor, owned: torch.Tensor,
+                              is_hot: torch.Tensor,
+                              weights: Optional[torch.Tensor] = None,
+                              c_scales: Optional[torch.Tensor] = None,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """Gather-once fused front end -- the plain version of the
+    ``fused_front_end_dedup`` kernel: each tier's staging
+    (:func:`masked_sls_dedup_ref`, cold with scales, hot without), then
+    ``cold + hot``, ``x`` as feature row 0 and :func:`dot_interaction_ref`,
+    as :func:`fused_front_end_ref` composes them.  Slots are (B, G, L)."""
+    B, G, L = c_slots.shape
+    D = cold.shape[-1]
+    nb = B * G
+    w = None if weights is None else weights.reshape(nb, L)
+    cold_p = masked_sls_dedup_ref(cold, c_unique, c_slots.reshape(nb, L),
+                                  owned.reshape(nb, L), w, c_scales,
+                                  out_dtype)
+    hot_p = masked_sls_dedup_ref(hot, h_unique, h_slots.reshape(nb, L),
+                                 is_hot.reshape(nb, L), w, None, out_dtype)
     pooled = (cold_p + hot_p).reshape(B, G, D)
     feats = torch.cat([x[:, None, :].to(out_dtype), pooled], dim=1)
     return dot_interaction_ref(feats)

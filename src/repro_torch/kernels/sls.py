@@ -10,6 +10,14 @@
   same gather); one CTA per batch tile pools both tiers into a
   shared-memory feature tile and runs the interaction on it, so the pooled
   features never reach device memory.
+* ``masked_sls_dedup`` and ``fused_front_end_dedup`` -- the gather-once
+  variants, in the same sources; they replace
+  ``repro/kernels/sls.py:masked_sls_dedup_pallas`` and
+  ``fused_front_end_dedup_pallas``.  Two launches on one stream: a stage
+  kernel gathers (and dequantizes) each unique row once into a float32
+  staging buffer the wrapper allocates, then the accumulate above reads it
+  through the plan's slots.  Bound by bytes (each distinct row once, plus
+  the staging round trip, which L2 holds while it fits).
 
 These functions take CUDA tensors only and launch the kernel or raise.
 ``kernels/ops.py`` picks between them and the plain versions in
@@ -26,6 +34,7 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 SMEM_MAX = 232448          # bytes of shared memory a block can opt into
 MAX_BLOCK_B = 16           # samples per CTA of the fused kernel, at most
 
@@ -115,6 +124,15 @@ def check_fused_front_end(cold, hot, x, rows, owned, is_hot, weights,
                           scales) -> None:
     """Input contract of the fused_front_end kernel (and its plain
     version)."""
+    _check_fused_operands(cold, hot, x, rows, owned, is_hot, weights)
+    _expect(scales, "scales", torch.float32, rows.shape, cold.device)
+    if (cold.dtype == torch.int8) != (scales is not None):
+        raise ValueError("an int8 cold tier needs per-entry scales, and only "
+                         "an int8 cold tier takes them")
+
+
+def _check_fused_operands(cold, hot, x, rows, owned, is_hot,
+                          weights) -> None:
     _expect_table(cold, "cold", (torch.float32, torch.int8))
     _expect_table(hot, "hot", (torch.float32,))
     if rows.dim() != 3:
@@ -130,10 +148,6 @@ def check_fused_front_end(cold, hot, x, rows, owned, is_hot, weights,
     _expect(owned, "owned", torch.bool, rows.shape, dev)
     _expect(is_hot, "is_hot", torch.bool, rows.shape, dev)
     _expect(weights, "weights", torch.float32, rows.shape, dev)
-    _expect(scales, "scales", torch.float32, rows.shape, dev)
-    if (cold.dtype == torch.int8) != (scales is not None):
-        raise ValueError("an int8 cold tier needs per-entry scales, and only "
-                         "an int8 cold tier takes them")
 
 
 def fused_block(B: int, F: int, D: int, n_sm: int) -> int:
@@ -180,4 +194,128 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
              B, G, L, D, max_bb, _stream(cold))
     build.check("fused_front_end", err)
     build.KERNELS["fused_front_end"].launches += 1
+    return out
+
+
+def _expect_plan(unique_rows, n_slots, unique_scales, U: int, dev) -> None:
+    _expect(unique_rows, "unique_rows", torch.int32, (U,), dev)
+    _expect(n_slots, "n_slots", torch.int32, (1,), dev)
+    _expect(unique_scales, "unique_scales", torch.float32, (U,), dev)
+
+
+def check_masked_sls_dedup(table, unique_rows, slots, owned, n_slots,
+                           weights, unique_scales) -> None:
+    """Input contract of the masked_sls_dedup kernel (and its plain
+    version): a dedup plan of capacity U = N * L over (N, L) bags."""
+    _expect_table(table, "table", (torch.float32, torch.int8))
+    if slots.dim() != 2:
+        raise ValueError(f"slots must be (N, L), got {tuple(slots.shape)}")
+    if owned is None:
+        raise ValueError("a dedup plan comes with its ownership mask")
+    dev, shape = table.device, slots.shape
+    _expect(slots, "slots", torch.int32, shape, dev)
+    _expect(owned, "owned", torch.bool, shape, dev)
+    _expect(weights, "weights", torch.float32, shape, dev)
+    _expect_plan(unique_rows, n_slots, unique_scales, slots.numel(), dev)
+    if (table.dtype == torch.int8) != (unique_scales is not None):
+        raise ValueError("an int8 table needs per-slot scales, and only an "
+                         "int8 table takes them")
+
+
+def masked_sls_dedup(table: torch.Tensor, unique_rows: torch.Tensor,
+                     slots: torch.Tensor, owned: torch.Tensor,
+                     n_slots: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     unique_scales: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Gather-once masked SLS on the card: (N, L) bags -> (N, D) float32
+    (plain version: ``ref.masked_sls_dedup_ref``)."""
+    check_masked_sls_dedup(table, unique_rows, slots, owned, n_slots,
+                           weights, unique_scales)
+    if table.device.type != "cuda":
+        raise ValueError("the masked_sls_dedup kernel takes CUDA tensors")
+    N, L = slots.shape
+    V, D = table.shape
+    out = torch.empty((N, D), dtype=torch.float32, device=table.device)
+    if N == 0:
+        return out
+    if L == 0:
+        return out.zero_()
+    U = N * L
+    staging = torch.empty((U, D), dtype=torch.float32, device=table.device)
+    fn = build.entry("masked_sls_dedup",
+                     [_P, _I, _I64, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                      _P, _I, _I, _P])
+    err = fn(table.data_ptr(), table.element_size(), V, D,
+             _vec16(D, table.element_size(), table), unique_rows.data_ptr(),
+             n_slots.data_ptr(), _ptr(unique_scales), staging.data_ptr(), U,
+             slots.data_ptr(), owned.data_ptr(), _ptr(weights),
+             out.data_ptr(), N, L, _stream(table))
+    build.check("masked_sls_dedup", err)
+    build.KERNELS["masked_sls_dedup"].launches += 1
+    return out
+
+
+def check_fused_front_end_dedup(cold, hot, x, c_unique, c_slots, c_n,
+                                h_unique, h_slots, h_n, owned, is_hot,
+                                weights, c_scales) -> None:
+    """Input contract of the fused_front_end_dedup kernel (and its plain
+    version): one dedup plan per tier, capacity U = B * G * L each."""
+    _check_fused_operands(cold, hot, x, c_slots, owned, is_hot, weights)
+    dev, U = cold.device, c_slots.numel()
+    _expect(h_slots, "h_slots", torch.int32, c_slots.shape, dev)
+    _expect_plan(c_unique, c_n, c_scales, U, dev)
+    _expect_plan(h_unique, h_n, None, U, dev)
+    if (cold.dtype == torch.int8) != (c_scales is not None):
+        raise ValueError("an int8 cold tier needs per-slot scales, and only "
+                         "an int8 cold tier takes them")
+
+
+def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
+                          x: torch.Tensor, c_unique: torch.Tensor,
+                          c_slots: torch.Tensor, c_n: torch.Tensor,
+                          h_unique: torch.Tensor, h_slots: torch.Tensor,
+                          h_n: torch.Tensor, owned: torch.Tensor,
+                          is_hot: torch.Tensor,
+                          weights: Optional[torch.Tensor] = None,
+                          c_scales: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Gather-once fused front end on the card: per-tier staging, then the
+    fused kernel through the slots -> (B, P) (plain version:
+    ``ref.fused_front_end_dedup_ref``)."""
+    check_fused_front_end_dedup(cold, hot, x, c_unique, c_slots, c_n,
+                                h_unique, h_slots, h_n, owned, is_hot,
+                                weights, c_scales)
+    if cold.device.type != "cuda":
+        raise ValueError("the fused_front_end_dedup kernel takes CUDA "
+                         "tensors")
+    B, G, L = c_slots.shape
+    D = cold.shape[1]
+    F = G + 1
+    P = F * (F - 1) // 2
+    out = torch.empty((B, P), dtype=torch.float32, device=cold.device)
+    if B == 0 or P == 0:
+        return out
+    if L == 0:
+        raise ValueError("fused_front_end_dedup needs L >= 1 (core/sls.py "
+                         "answers empty bags with zeros)")
+    U = B * G * L
+    c_stage = torch.empty((U, D), dtype=torch.float32, device=cold.device)
+    h_stage = torch.empty((U, D), dtype=torch.float32, device=cold.device)
+    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
+    max_bb = fused_block(B, F, D, n_sm)
+    fn = build.entry("fused_front_end_dedup",
+                     [_P, _I, _I64, _I, _P, _I64, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _P])
+    err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0],
+             _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot),
+             hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
+             c_n.data_ptr(), _ptr(c_scales), h_unique.data_ptr(),
+             h_n.data_ptr(), c_stage.data_ptr(), h_stage.data_ptr(), U,
+             c_slots.data_ptr(), h_slots.data_ptr(), owned.data_ptr(),
+             is_hot.data_ptr(), _ptr(weights), out.data_ptr(), B, G, L, D,
+             max_bb, _stream(cold))
+    build.check("fused_front_end_dedup", err)
+    build.KERNELS["fused_front_end_dedup"].launches += 1
     return out

@@ -66,11 +66,13 @@ class DLRM(nn.Module):
     def forward(self, engine: PIFSEmbeddingEngine, state,
                 batch: Dict[str, torch.Tensor], mode: str = "pifs",
                 impl: str = "cuda", front_end: str = "split",
-                tiers: str = "all") -> torch.Tensor:
+                tiers: str = "all", dedup: Optional[str] = None
+                ) -> torch.Tensor:
         """CTR logits (B,).  ``front_end='fused'`` routes lookup + feature
         stacking + interaction through ``engine.lookup_interact`` (one
         kernel on the card); ``tiers='hot_only'`` reads the hot tier only
-        and forces the split front end, as the reference does."""
+        and forces the split front end, as the reference does.  ``dedup``
+        is the engine's gather-once knob (None = the engine default)."""
         if front_end not in PIFSEmbeddingEngine.FRONT_END_MODES:
             raise ValueError(f"unknown front_end {front_end!r}")
         if tiers != "all":
@@ -82,10 +84,11 @@ class DLRM(nn.Module):
         if front_end == "fused":
             inter = engine.lookup_interact(
                 state, idx, x_bot, weights=w, mode=mode, impl=impl,
-                front_end="fused")                              # (B, P)
+                dedup=dedup, front_end="fused")                 # (B, P)
         else:
             pooled = engine.lookup(state, idx, weights=w, mode=mode,
-                                   impl=impl, tiers=tiers)      # (B, T, d)
+                                   impl=impl, dedup=dedup,
+                                   tiers=tiers)                 # (B, T, d)
             feats = torch.cat([x_bot[:, None, :], pooled], dim=1)
             inter = kernel_ops.dot_interaction(feats, impl=impl)
         z = torch.cat([x_bot, inter], dim=-1)
@@ -94,12 +97,13 @@ class DLRM(nn.Module):
 
 def make_serve_step(model: DLRM, engine: PIFSEmbeddingEngine,
                     mode: str = "pifs", impl: str = "cuda",
-                    front_end: str = "split", tiers: str = "all"):
+                    front_end: str = "split", tiers: str = "all",
+                    dedup: Optional[str] = None):
     """``step(state, batch) -> (B,)`` click probabilities."""
     @torch.inference_mode()
     def step(state, batch):
         logits = model(engine, state, batch, mode=mode, impl=impl,
-                       front_end=front_end, tiers=tiers)
+                       front_end=front_end, tiers=tiers, dedup=dedup)
         return torch.sigmoid(logits)
     return step
 

@@ -117,8 +117,9 @@ def test_mlp_matches_reference_mlp_apply():
 
 
 def test_serving_driver_end_to_end_fused_matches_split():
-    """The port's serve loop (fixed batcher, padded last batch, profiled hot
-    tier): scores finite in (0, 1) and fused == split bitwise.  The
+    """The port's serve loop (fixed batcher, padded last batch, hot tier
+    placed by observe over a profile and plan_and_migrate): scores finite
+    in (0, 1) and fused == split bitwise.  The
     reference's counterpart, tests/test_serving.py::
     test_end_to_end_serving_front_end_fused_matches_split, is one of the
     reference tests known to fail on this tree (ROADMAP.md queue 3); this
@@ -141,27 +142,6 @@ def test_serving_driver_end_to_end_fused_matches_split():
         np.testing.assert_array_equal(solo, s[32:])
 
 
-def test_profile_page_table_fills_the_hot_tier():
-    cfg = reduced(get_config("rmc1"))
-    reqs = srv.request_stream(cfg, 8, seed=0)
-    eng, _ = dlrm.build_engine(cfg, "cpu", hot_fraction=0.25)
-    t = srv.profile_page_table(eng, reqs[:2])
-    hot = np.nonzero(t.page_to_shard.numpy() == HOT_SHARD)[0]
-    assert hot.size == eng.cfg.hot_pages
-    counts = np.bincount(np.concatenate(
-        [r.features["indices"].reshape(-1) for r in reqs[:2]])
-        // eng.cfg.page_size, minlength=eng.cfg.num_pages)
-    touched = np.nonzero(counts)[0]
-    if touched.size <= hot.size:              # every touched page is hot
-        assert set(touched) <= set(hot)
-    else:                                     # the most-accessed pages are
-        cold = np.setdiff1d(touched, hot)
-        assert set(hot) <= set(touched)
-        assert counts[hot].min() >= counts[cold].max()
-    slots = t.page_to_slot.numpy()
-    assert sorted(slots[hot]) == list(range(hot.size))
-
-
 @pytest.mark.parametrize("argv", [["--front-end", "split"],
                                   ["--front-end", "fused", "--storage",
                                    "int8"],
@@ -173,8 +153,29 @@ def test_serve_cli_on_cpu(argv, capsys):
     assert "qps" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("dedup", ["on", "auto"])
+def test_serve_cli_dedup_scores_equal_off(dedup):
+    """--dedup on/auto serve the stream with scores bitwise equal to off
+    (through the maintenance cadence: observe every 2 batches, a re-plan
+    after the fourth), and record their resolution."""
+    argv = ["--device", "cpu", "--requests", "40", "--batch", "8",
+            "--front-end", "fused", "--storage", "int8", "--observe-every",
+            "2", "--replan-every", "4"]
+    off = srv.main(argv)
+    got = srv.main([*argv, "--dedup", dedup])
+    np.testing.assert_array_equal(got["scores"], off["scores"])
+    assert (got["observes"], got["replans"]) == (2, 1)
+    assert "dedup" not in off["front_end"] and off["dedup"] == {}
+    (rec,) = got["dedup"].values()
+    assert rec["requested"] == dedup and rec["capacity_ok"]
+    if dedup == "on":
+        assert rec["resolved"]
+    else:
+        assert rec["hint_factor"] is not None
+    assert got["dedup_factors"]
+
+
 @pytest.mark.parametrize("flag", [["--batcher", "dynamic"],
-                                  ["--dedup", "on"],
                                   ["--update-qps", "10"], ["--scrub"],
                                   ["--mesh-faults"]])
 def test_serve_cli_not_ported_flags_raise(flag):

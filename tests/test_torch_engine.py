@@ -193,14 +193,13 @@ def test_empty_hot_tier_beacon_placement(mesh11):
 def test_not_ported_knobs_raise_and_name_the_roadmap(mesh11):
     _, _, eng, state, offs, rng = _carried("fp32", mesh11)
     idx, w, x = map(torch.as_tensor, _batch(rng, offs, "01"))
-    for kw in (dict(mode="pond"), dict(combine="psum_scatter"),
-               dict(dedup="on"), dict(dedup="auto")):
+    for kw in (dict(mode="pond"), dict(combine="psum_scatter")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             eng.lookup(state, idx, w, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             eng.lookup_interact(state, idx, x, w, front_end="fused", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.observe(state, idx)
+    with pytest.raises(ValueError):
+        eng.lookup(state, idx, w, dedup="bogus")
     with pytest.raises(ValueError):
         eng.lookup(state, idx, w, mode="bogus")
     with pytest.raises(ValueError):
