@@ -2,15 +2,22 @@
 
     python3 chip_smoke.py
 
-1. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all in parallel; the two gather-once kernels
-   share the sources of the kernels they vary);
+1. builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all in parallel; the gather-once kernels,
+   the partial pools and the resume share the sources of the kernels they
+   vary);
 2. kernel phase: holds each kernel against its plain PyTorch version on
    the card -- D in {16, 18, 64, 128}, fp32 and int8 tables, weights of 0/1
    (bitwise) and general weights (tolerance below), L = 7, batches that
    no block size divides, and an empty hot tier -- and each gather-once
    (dedup) kernel against the kernel it varies, bitwise for every weight,
-   on random, all-duplicate, all-unique and all-masked batches;
+   on random, all-duplicate, all-unique and all-masked batches; the
+   partial pools (1 and 4 cold shards in one launch) and the resume
+   kernel against their plain versions, the gather-once partial pool
+   against the per-entry one (bitwise, every weight), and 4 shards'
+   partial pools summed in shard order and resumed against the split
+   composition of kernels (bitwise, every weight), with an empty hot tier
+   and with every entry masked;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -27,18 +34,29 @@
    bitwise equal to ``dedup='off'`` and launch both gather-once kernels;
    ``dedup='auto'`` after ``prime_dedup_auto`` prints its resolution
    record and the measured duplicate factor;
-5. maintenance phase at RMC4 (fp32 and int8): observes 16 batch-32
+5. tp/pond phase, per configuration: pifs with the cold tier in 4 shards
+   on one card (the reference serve launcher's tp = 4) and pond on the
+   one-shard engine, each split and fused, dedup off and on, at batch 32
+   and 2048, launch counts zeroed just before and read just after (the
+   partial pools and the resume must have run).  Checks: scores in
+   (0, 1); at 4 shards fused == split and dedup on == off bitwise; pond
+   fused == pifs fused bitwise on the one-shard engine; pond split within
+   1e-5 of pond fused, 4-shard scores within 1e-5 of one shard's; the
+   front-end records say ``fused_tp`` with tp = 4 and tp = 1; dedup auto
+   at 4 shards equals off; and at RMC4 the maintenance phase below also
+   runs on the 4-shard engine;
+6. maintenance phase at RMC4 (fp32 and int8): observes 16 batch-32
    batches, re-plans, observes 16 batches of drifted traffic, re-plans
    again, timing the planner and the migration apart; the dense table and
    one-id-per-bag probe lookups stay bitwise equal across each re-plan;
    prints the peak device memory of each migration;
-6. times each kernel (CUDA events, L2 flushed, median), its plain version
+7. times each kernel (CUDA events, L2 flushed, median), its plain version
    and the library call where one exists, beside its bound
    max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) from this run's inputs
    (each distinct row counted once), times ``dedup_plan``, and times the
-   serve steps at batch 32 and 2048 with dedup off and on (host clock to a
-   synchronize), with the device's busy time in them from
-   ``torch.profiler``.
+   serve steps at batch 32 and 2048 with dedup off and on, at 4 shards
+   and in pond (host clock to a synchronize), with the device's busy time
+   in them from ``torch.profiler``.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -175,28 +193,31 @@ def dedup_cost(table, plan) -> dict:
 
 def device_busy(step, state, batch, step_ms: float, reps: int = 10) -> dict:
     """Device time of one serve step from ``torch.profiler`` (the sum of
-    its kernels and copies), its share of the step's host-clock time, and
-    the kernels that take most of it.  ``None`` where the profiler saw no
-    device activity."""
+    its kernels and copies), its share of the step's host-clock time, the
+    device operations (kernels and copies) per step, and the kernels that
+    take most of it.  ``None`` where the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step(state, batch)
         torch.cuda.synchronize()
-    dev = {}
+    dev, n_ops = {}, 0
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = ev.cuda_time_total
             dev[ev.key] = t / 1e3 / reps                 # us -> ms per step
+            n_ops += ev.count
     busy = sum(dev.values())
     if busy <= 0:
         return {"device_busy_ms": None, "idle_share": None,
-                "top_device_ms": None}
+                "device_ops": None, "top_device_ms": None}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
     return {"device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "device_ops": n_ops / reps,
             "top_device_ms": {k[:60]: v for k, v in top}}
 
 
@@ -356,9 +377,11 @@ def kernel_phase(gen: torch.Generator) -> None:
                 [x[:, None], (cold_p + 0.0).reshape(B, G, D)], 1))
             assert_equal(fk, split, f"fused empty-hot D={D} {storage}")
     n_dedup = dedup_kernel_checks(gen)
+    n_tp = partial_pool_kernel_checks(gen)
     torch.cuda.synchronize()
     print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_dedup} "
-          f"gather-once cases passed; launches "
+          f"gather-once cases + {n_tp} partial-pool/resume cases passed; "
+          f"launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
           flush=True)
 
@@ -443,11 +466,129 @@ def dedup_kernel_checks(gen: torch.Generator) -> int:
     return n_cases
 
 
+def partial_pool_kernel_checks(gen: torch.Generator) -> int:
+    """Rows 7-9: the partial pool (per shard, one launch), its gather-once
+    variant and the resume kernel, against their plain versions (bitwise
+    at 0/1 weights, within the SLS and dot tolerances otherwise), the
+    gather-once tiles against the per-entry tiles (bitwise, every weight)
+    and the composition -- S shards' partial pools, summed in shard order
+    and resumed -- against the split composition of kernels (bitwise,
+    every weight), at S = 1 and 4, with an empty hot tier and with every
+    entry masked."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import shard_sum
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n_cases = 0
+    V, G, L, H = 3000, 8, 7, 300
+    for D in (16, 18, 64, 128):
+        for storage in ("fp32", "int8"):
+            S_max = 4
+            if storage == "int8":
+                cold = torch.randint(-127, 128, (S_max * V, D),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int8)
+            else:
+                cold = torch.randn((S_max * V, D), generator=gen,
+                                   device="cuda")
+            hot = torch.randn((H, D), generator=gen, device="cuda")
+            # one scale per (shard, row), as pages carry them: duplicates
+            # of a row share it, which the gather-once plan relies on
+            row_scale = rand((S_max, H), 1e-4, 2e-2)
+            for S in (1, 4):
+                tier = cold[:S * V]
+                for B, kind in ((37, "random"), (2053, "random"),
+                                (37, "empty_hot"), (37, "all_masked")):
+                    N = B * G
+                    rows3 = torch.randint(0, H, (B, G, L), generator=gen,
+                                          device="cuda", dtype=torch.int32)
+                    # each entry: a shard in [0, S) or the hot tier (-1)
+                    shard = torch.randint(-1, S, (B, G, L), generator=gen,
+                                          device="cuda")
+                    if kind == "all_masked":
+                        shard = torch.full_like(shard, S)   # nobody owns it
+                    own4 = shard[None] == torch.arange(
+                        S, device="cuda").view(S, 1, 1, 1)
+                    hot3 = shard == -1
+                    hot_t = hot
+                    if kind == "empty_hot":
+                        hot3 = torch.zeros_like(hot3)
+                        hot_t = torch.zeros((0, D), device="cuda")
+                    s3 = (row_scale[shard.clamp(0, S - 1), rows3]
+                          if storage == "int8" else None)
+                    x = torch.randn((B, D), generator=gen, device="cuda")
+                    own = own4[0] if S == 1 else own4
+                    for weighting in ("01", "general"):
+                        w3 = ((rand((B, G, L)) < 0.8).float()
+                              if weighting == "01"
+                              else rand((B, G, L), -2.0, 2.0))
+                        tag = (f"D={D} {storage} S={S} B={B} {kind} "
+                               f"w={weighting}")
+                        args = (tier, hot_t, x, rows3, own, hot3, w3, s3)
+                        pc, ph = core_sls.fused_partial_pool_dense(*args)
+                        qc, qh = core_sls.fused_partial_pool_dense(
+                            *args, impl="torch")
+                        dc, dh = core_sls.fused_partial_pool_dense(
+                            *args, dedup=True)
+                        assert_equal(dc, pc, f"partial pool dedup == "
+                                             f"per-entry part_c {tag}")
+                        assert_equal(dh, ph, f"partial pool dedup == "
+                                             f"per-entry part_h {tag}")
+                        if weighting == "01":
+                            assert_equal(pc, qc, f"partial pool part_c {tag}")
+                            assert_equal(ph, qh, f"partial pool part_h {tag}")
+                        else:
+                            flat = rows3.reshape(N, L)
+                            hs = hot_t if hot_t.shape[0] else \
+                                torch.zeros((1, D), device="cuda")
+                            wf = w3.reshape(N, L)
+                            sf = None if s3 is None else s3.reshape(N, L)
+                            tc = torch.stack([sls_tol(
+                                tier[s * V:(s + 1) * V], flat,
+                                own4[s].reshape(N, L), wf, sf)
+                                for s in range(S)]).reshape(S, B, G, D)
+                            th = sls_tol(hs, flat, hot3.reshape(N, L), wf,
+                                         None).reshape(B, G, D)
+                            z = torch.zeros((S, B, 1, D), device="cuda")
+                            tc = torch.cat([z, tc], 2)
+                            assert_close(pc, qc, tc[0] if S == 1 else tc,
+                                         f"partial pool part_c {tag}")
+                            assert_close(ph, qh, torch.cat([z[0], th], 1),
+                                         f"partial pool part_h {tag}")
+                        # resume vs its plain version, on the same tiles
+                        out = core_sls.fused_resume_dense(pc, ph)
+                        feats = (shard_sum(pc) if S > 1 else pc) + ph
+                        assert_close(out, core_sls.fused_resume_dense(
+                            pc, ph, impl="torch"), dot_tol(feats),
+                            f"fused_resume {tag}")
+                        # composition == split composition of kernels
+                        flat = rows3.reshape(N, L)
+                        cold_p = core_sls.masked_partial_sls_dense(
+                            tier, flat, own4.reshape(S, N, L),
+                            w3.reshape(N, L),
+                            scales=None if s3 is None else s3.reshape(N, L))
+                        hot_p = core_sls.masked_partial_sls_dense(
+                            hot_t if hot_t.shape[0] else
+                            torch.zeros((1, D), device="cuda"),
+                            flat, hot3.reshape(N, L), w3.reshape(N, L))
+                        split = ops.dot_interaction(torch.cat(
+                            [x[:, None],
+                             (shard_sum(cold_p) + hot_p).reshape(B, G, D)],
+                            1))
+                        assert_equal(out, split, f"partial pool -> resume "
+                                                 f"== split {tag}")
+                        n_cases += 1
+    return n_cases
+
+
 # ----------------------------------------------------------- slice phase
 BIG_BUDGET = 1 << 30    # staging budget that lets batch 2048 resolve on
 
 
-def serve_runs(b, state0, reqs, bulk, batch, big, dedup):
+def serve_runs(b, state0, reqs, bulk, batch, big, dedup, mode="pifs"):
     """Split and fused serve runs of ``reqs`` at ``batch`` and ``bulk`` at
     ``big``, each from the same starting state (the maintenance cadence
     moves the state along during a run)."""
@@ -455,7 +596,7 @@ def serve_runs(b, state0, reqs, bulk, batch, big, dedup):
 
     def run(fe, rq, bs):
         b.state = state0
-        return srv.serve(b, b.step(fe, dedup=dedup), rq, bs)
+        return srv.serve(b, b.step(fe, mode=mode, dedup=dedup), rq, bs)
 
     small = {fe: run(fe, reqs, batch) for fe in ("split", "fused")}
     if dedup == "on":
@@ -489,7 +630,7 @@ def slice_phase(timer: Timer):
     paths = {"off": ("masked_sls", "dot_interaction", "fused_front_end"),
              "on": ("masked_sls_dedup", "dot_interaction",
                     "fused_front_end_dedup")}
-    launches = {p: {k: 0 for k in build.KERNELS} for p in paths}
+    launches = {p: {k: 0 for k in build.KERNELS} for p in (*paths, "tp")}
     details, steps, dedup_lines, maint = [], [], [], []
     for arch in ("rmc1", "rmc4"):
         cfg = get_config(arch)
@@ -567,6 +708,7 @@ def slice_phase(timer: Timer):
                             impl="torch")
             assert_equal(lk, lp, f"{tag}: lookup kernel vs plain")
             loc, owned, is_hot, scale = eng._address(state0, hb["indices"])
+            owned = owned[0]                       # one shard
             real = hb["weights"] != 0
             hot_share = float((is_hot & real).sum() / real.sum())
             print(f"{tag}: setup {setup_s:.1f} s; served {n_req} requests at "
@@ -580,6 +722,7 @@ def slice_phase(timer: Timer):
                 sub = {k: v[:B] for k, v in hb.items()}
                 loc, owned, is_hot, scale = eng._address(state0,
                                                          sub["indices"])
+                owned = owned[0]                   # one shard
                 x = torch.randn((B, D), device="cuda")
                 flat = loc.reshape(-1, L)
                 own2, hot2 = owned.reshape(-1, L), is_hot.reshape(-1, L)
@@ -715,14 +858,214 @@ def slice_phase(timer: Timer):
                             ts.append((time.perf_counter() - t) * 1e3)
                         ms = statistics.median(ts)
                         steps.append({"arch": arch, "storage": storage,
+                                      "n_shards": 1, "mode": "pifs",
                                       "front_end": fe, "dedup": dedup,
                                       "batch": B, "step_ms": ms,
                                       **device_busy(step, state0, sub, ms)})
+            tp_phase(b, state0, cfg, storage, reqs, bulk, res["off"], hb,
+                     timer, launches["tp"], details, steps, maint)
             if arch == "rmc4":
                 maint.append(maintenance_phase(b, state0, cfg, storage))
             del b, hb, lk, lp, state0, res, auto, plain, cold, hot
             torch.cuda.empty_cache()
     return launches, details, steps, dedup_lines, maint
+
+
+# -------------------------------------------------------- tp/pond phase
+TP = 4          # the reference serve launcher's tp: make_test_mesh(n, 4)
+
+
+def step_time(step, state, batch) -> dict:
+    """Median host-clock time of 20 serve steps (to a synchronize) and the
+    device's busy share in them."""
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(20):
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(ts)
+    return {"step_ms": ms, **device_busy(step, state, batch, ms)}
+
+
+def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
+             launches, details, steps, maint) -> None:
+    """The fused_tp paths.  pifs at n_shards = 4 on a binding of its own
+    (same seed, same profile) and pond on the one-shard binding ``b1``,
+    each split and fused, dedup off and on, at batch 32 and 2048; launch
+    counts zeroed just before and read just after.  Checks: scores in
+    (0, 1); pifs fused == split and dedup on == off bitwise at 4 shards;
+    pond-fused == pifs-fused bitwise on the one-shard engine (``pifs1``,
+    the slice phase's dedup-off runs); pond split within 1e-5 of pond
+    fused; 4-shard scores within 1e-5 of one shard's; the front-end
+    records; dedup auto at 4 shards; and (RMC4) the re-plans at 4 shards.
+    Then times the partial pools and the resume (4 shards) and the serve
+    steps of both paths."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import shard_sum
+    from repro_torch.launch import serve as srv
+
+    n_req, batch, big = len(reqs), 32, len(bulk)
+    G, L, D = cfg.n_tables, cfg.pooling, cfg.emb_dim
+    F = G + 1
+    P = F * (F - 1) // 2
+    tag = f"{cfg.name} {storage}"
+    t0 = time.perf_counter()
+    b4 = srv.bind_model(cfg, "cuda", storage=storage, seed=0,
+                        profile=reqs[: n_req // 4], n_shards=TP)
+    state4 = b4.state
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng1, eng4 = b1.engine, b4.engine
+    eng1.reset_plan_stats(clear_plans=True)
+    eng1.dedup_staging_bytes = 4 << 20
+    # ---- the path: counts zeroed just before, read just after
+    build.reset_launches()
+    tp = {d: serve_runs(b4, state4, reqs, bulk, batch, big, d)
+          for d in ("off", "on")}
+    pond = {}
+    for d in ("off", "on"):
+        eng1.dedup_staging_bytes = 4 << 20
+        eng1.reset_plan_stats(clear_plans=True)
+        pond[d] = serve_runs(b1, state1, reqs, bulk, batch, big, d,
+                             mode="pond")
+    got = {k: v.launches for k, v in build.KERNELS.items()}
+    for k in ("masked_sls", "dot_interaction", "masked_sls_dedup",
+              "fused_partial_pool", "fused_partial_pool_dedup",
+              "fused_resume"):
+        check(got[k] > 0, f"{tag}: kernel {k} was not launched by the "
+                          f"tp/pond serve runs")
+    for k in launches:
+        launches[k] += got[k]
+    print(f"{tag}: tp/pond path launches {got}", flush=True)
+    rec4 = eng4.plan_stats()["front_end"]
+    rec1 = eng1.plan_stats()["front_end"]
+    check(all(v["resolved"] == "fused_tp" and v["tp"] == TP
+              for v in rec4.values() if v["requested"] == "fused"),
+          f"{tag}: 4-shard records {rec4}")
+    check(all(v["resolved"] == "fused_tp" and v["tp"] == 1
+              for v in rec1.values() if v["requested"] == "fused"),
+          f"{tag}: pond records {rec1}")
+    # ---- checks on the served scores
+    for i, bs in enumerate((batch, big)):
+        check_scores(f"{tag} batch {bs} tp={TP}",
+                     {f"{d} {fe}": tp[d][i][fe] for d in tp
+                      for fe in ("split", "fused")})
+        check_scores(f"{tag} batch {bs} pond",
+                     {f"{d} {fe}": pond[d][i][fe] for d in pond
+                      for fe in ("split", "fused")})
+        for d in ("off", "on"):
+            check(np.array_equal(tp[d][i]["split"]["scores"],
+                                 tp[d][i]["fused"]["scores"]),
+                  f"{tag} batch {bs} tp={TP} dedup={d}: fused != split")
+        for fe in ("split", "fused"):
+            check(np.array_equal(tp["on"][i][fe]["scores"],
+                                 tp["off"][i][fe]["scores"]),
+                  f"{tag} batch {bs} tp={TP} {fe}: dedup on != off")
+            check(np.array_equal(pond["on"][i][fe]["scores"],
+                                 pond["off"][i][fe]["scores"]),
+                  f"{tag} batch {bs} pond {fe}: dedup on != off")
+        check(np.array_equal(pond["off"][i]["fused"]["scores"],
+                             pifs1[i]["fused"]["scores"]),
+              f"{tag} batch {bs}: pond fused != pifs fused bitwise")
+        e = float(np.abs(pond["off"][i]["split"]["scores"]
+                         - pond["off"][i]["fused"]["scores"]).max())
+        check(e <= 1e-5, f"{tag} batch {bs}: pond split vs fused {e:.3e}")
+        e4 = float(np.abs(tp["off"][i]["split"]["scores"]
+                          - pifs1[i]["split"]["scores"]).max())
+        check(e4 <= 1e-5, f"{tag} batch {bs}: tp={TP} vs one shard {e4:.3e}")
+        print(f"{tag} batch {bs}: pond split vs fused max diff {e:.2e}; "
+              f"tp={TP} vs one shard {e4:.2e}", flush=True)
+    # ---- dedup auto at 4 shards, primed from the stream's prefix
+    b4.state = state4
+    srv.prime_dedup_auto(b4, reqs)
+    for fe in ("split", "fused"):
+        auto = srv.serve(b4, b4.step(fe, dedup="auto"), reqs, batch)
+        check(np.array_equal(auto["scores"], tp["off"][0][fe]["scores"]),
+              f"{tag} tp={TP} {fe}: dedup auto != off bitwise")
+    print(f"{tag}: tp={TP} setup {setup_s:.1f} s; dedup auto records "
+          f"{json.dumps(eng4.plan_stats().get('dedup', {}))}", flush=True)
+    # ---- timing at the serve shapes, 4 shards
+    b4.state = state4
+    eng4.dedup_staging_bytes = BIG_BUDGET
+    R = eng4.cfg.rows_per_shard
+    for B in (batch, big):
+        sub = {k: v[:B] for k, v in hb.items()}
+        loc, own4, is_hot, scale = eng4._address(state4, sub["indices"])
+        w = sub["weights"]
+        x = torch.randn((B, D), device="cuda")
+        cold, hot = state4.cold, state4.hot
+        pp_args = (cold, hot, x, loc, own4, is_hot, w, scale)
+        cp, hp = core_sls.partial_pool_plans(cold.shape[0], loc, own4,
+                                             is_hot, scale)
+        pc, ph = ops.fused_partial_pool(*pp_args)
+        n_e = loc.numel()
+        base = torch.arange(TP, device="cuda").view(TP, 1, 1, 1) * R
+        uc = torch.unique((loc[None] + base)[own4]).numel()
+        uh = torch.unique(loc[is_hot]).numel()
+        tiles = (TP + 1) * B * F * D * 4
+        meta = n_e * (4 + TP + 1 + 4 + 4 * (scale is not None))
+        flops = 2 * n_e * D * 2 + n_e * D * (scale is not None)
+        c_dd, h_dd = dedup_cost(cold, cp), dedup_cost(hot, hp)
+        ij = torch.tril_indices(F, F, -1, device="cuda")
+
+        def lib_resume():
+            f = shard_sum(pc) + ph
+            return torch.bmm(f, f.transpose(1, 2))[:, ij[0], ij[1]]
+
+        calls = {
+            "fused_partial_pool": (
+                lambda: ops.fused_partial_pool(*pp_args),
+                lambda: ops.fused_partial_pool(*pp_args, impl="torch"),
+                bound(uc * D * cold.element_size() + uh * D * 4 + meta
+                      + B * D * 4 + tiles, flops), None),
+            "fused_partial_pool_dedup": (
+                lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp, hp,
+                                                     own4, is_hot, w),
+                lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp, hp,
+                                                     own4, is_hot, w,
+                                                     impl="torch"),
+                bound(c_dd["nbytes"] + h_dd["nbytes"]
+                      + n_e * (4 * TP + 4 + TP + 1 + 4) + B * D * 4 + tiles,
+                      2 * n_e * D * 2 + c_dd["dequant_flops"]), None),
+            "fused_resume": (
+                lambda: ops.fused_resume(pc, ph),
+                lambda: ops.fused_resume(pc, ph, impl="torch"),
+                bound(tiles + B * P * 4, 2 * B * F * F * D), lib_resume),
+        }
+        feats = shard_sum(pc) + ph
+        for name, (kfn, pfn, cost, lib) in calls.items():
+            kout, pout = kfn(), pfn()
+            what = f"{name} {tag} tp={TP} batch {B}"
+            if name == "fused_resume":
+                assert_close(kout, pout, dot_tol(feats), what)
+                err = float((kout - pout).abs().max())
+            else:                                   # 0/1 weights: bitwise
+                for a, z, part in zip(kout, pout, ("part_c", "part_h")):
+                    assert_equal(a, z, f"{what} {part}")
+                err = 0.0
+            details.append({"name": name, "arch": cfg.name,
+                            "storage": storage, "batch": B, "n_shards": TP,
+                            "ms": timer(kfn), "plain_ms": timer(pfn),
+                            "library_ms": None if lib is None
+                            else timer(lib), "max_abs_err": err, **cost})
+        # ---- serve steps: pifs at 4 shards, pond at one
+        for mode, bb, st in (("pifs", b4, state4), ("pond", b1, state1)):
+            for fe in ("split", "fused"):
+                steps.append({"arch": cfg.name, "storage": storage,
+                              "n_shards": bb.engine.cfg.n_shards,
+                              "mode": mode, "front_end": fe, "dedup": "off",
+                              "batch": B,
+                              **step_time(bb.step(fe, mode=mode), st, sub)})
+    if cfg.name == "rmc4":
+        maint.append(maintenance_phase(b4, state4, cfg, storage))
+    b1.state = state1
+    del b4, state4, tp, pond, pc, ph, cp, hp
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------- maintenance phase
@@ -742,7 +1085,8 @@ def maintenance_phase(b, state0, cfg, storage) -> dict:
     # the hot set drifts after the first 16 batches' 512 requests
     stream = srv.request_stream(cfg, 2 * 16 * 32, seed=2, storage=storage,
                                 drift_every=16 * 32)
-    out = {"arch": "rmc4", "storage": storage, "replans": []}
+    out = {"arch": "rmc4", "storage": storage,
+           "n_shards": eng.cfg.n_shards, "replans": []}
     for half in range(2):
         batches = [pad_batch(stream[(half * 16 + i) * 32:
                                     (half * 16 + i + 1) * 32],
@@ -771,9 +1115,11 @@ def maintenance_phase(b, state0, cfg, storage) -> dict:
         migrate_s = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated()
         assert_equal(eng.lookup(b.state, probe), before,
-                     f"rmc4 {storage} replan {half + 1}: probe lookups")
+                     f"rmc4 {storage} S={eng.cfg.n_shards} replan "
+                     f"{half + 1}: probe lookups")
         assert_equal(eng.to_dense(b.state), dense_before,
-                     f"rmc4 {storage} replan {half + 1}: dense table")
+                     f"rmc4 {storage} S={eng.cfg.n_shards} replan "
+                     f"{half + 1}: dense table")
         bag_diff = (eng.lookup(b.state, bags) - bags_before).abs()
         flips = int((hot_before != (host(b.state.page_to_shard)
                                     == HOT_SHARD)).sum())
@@ -787,7 +1133,8 @@ def maintenance_phase(b, state0, cfg, storage) -> dict:
                **{k: stats[k] for k in ("moved_pages", "hot_pages",
                                         "sticky_kept")}}
         out["replans"].append(rec)
-        print(f"maintenance rmc4 {storage}: {json.dumps(rec)}", flush=True)
+        print(f"maintenance rmc4 {storage} n_shards={eng.cfg.n_shards}: "
+              f"{json.dumps(rec)}", flush=True)
         del dense_before, before, bags_before
     return out
 
@@ -839,7 +1186,10 @@ def main() -> None:
             "dot_interaction": ("dot_interaction", "off"),
             "fused_front_end": ("fused_front_end", "off"),
             "masked_sls_dedup": ("masked_sls_dedup/cold", "on"),
-            "fused_front_end_dedup": ("fused_front_end_dedup", "on")}
+            "fused_front_end_dedup": ("fused_front_end_dedup", "on"),
+            "fused_partial_pool": ("fused_partial_pool", "tp"),
+            "fused_partial_pool_dedup": ("fused_partial_pool_dedup", "tp"),
+            "fused_resume": ("fused_resume", "tp")}
     kernels = []
     for k in build.KERNELS.values():
         row, path = pick[k.name]
@@ -852,7 +1202,8 @@ def main() -> None:
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-            "shape": f"rmc4 fp32 batch 2048 ({row})"})
+            "shape": f"rmc4 fp32 batch 2048 ({row}, "
+                     f"{d.get('n_shards', 1)} shard(s))"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

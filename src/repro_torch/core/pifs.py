@@ -1,13 +1,25 @@
 """PIFSEmbeddingEngine on one device (a port of ``repro.core.pifs``).
 
-The paged two-tier embedding store and its lookups, for the DLRM serve
-path on one card (the reference's dp=1, tp=1 mesh):
+The paged two-tier embedding store and its lookups, in the reference's
+three modes:
 
-  * ``pifs``   -- reduce near the data: the cold tier runs a masked
-                  partial SLS over the rows it owns and hot-tier hits are
-                  served from the replicated copy;
-  * ``beacon`` -- the same datapath with tiering disabled (build the
+  * ``pifs``   -- reduce near the data: each cold-tier shard runs a masked
+                  partial SLS over the rows it owns, the shards' pooled
+                  partials are summed, and hot-tier hits are served from
+                  the replicated copy;
+  * ``pond``   -- communicate then reduce (the paper's baseline): each
+                  shard ships its raw rows, which are summed over shards
+                  and then pooled; a fused front end pools them first;
+  * ``beacon`` -- the pifs datapath with tiering disabled (build the
                   engine with ``hot_fraction=0`` and never promote pages).
+
+Shards.  ``PagingConfig.n_shards`` = S is the reference's tp axis.  One
+device holds every shard: the cold tier is S equal slices of one tensor,
+each shard's mask is ``page_to_shard == s``, and the per-shard partials
+are summed in shard order (``kernels/ref.shard_sum``), the order of the
+reference's psum on its CPU mesh.  ``combine='psum_scatter'`` gives the
+same values as 'psum', the whole (B, G, D) batch (one device holds every
+bag slice).  There is no dp axis: the batch is one data-parallel group.
 
 State is an ``EngineState`` of tensors; every method is functional.  State
 crosses from the reference engine as the placement-free triple of
@@ -18,10 +30,6 @@ once per signature (:meth:`_resolve_dedup`).  Maintenance is the
 reference's: :meth:`observe` keeps the page-access histogram, and
 :meth:`plan_and_migrate` places the hot tier with ``core.planner`` and
 moves the pages (:meth:`migrate`).
-
-Not ported yet, each raising and naming its ``ROADMAP.md`` item:
-``mode="pond"`` and tp > 1 (queue 1 item 10), ``combine="psum_scatter"``
-(queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -39,14 +47,7 @@ from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
 from repro_torch.core.planner import PlannerConfig, plan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
-
-_TODO = {
-    "pond": "mode='pond' is not ported yet (ROADMAP.md queue 1 item 10)",
-    "tp": "tp > 1 (n_shards > 1) is not ported yet (ROADMAP.md queue 1 "
-          "item 10)",
-    "psum_scatter": "combine='psum_scatter' is not ported yet (ROADMAP.md "
-                    "queue 1 item 10)",
-}
+from repro_torch.kernels.ref import shard_sum
 
 FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
 #                      its fused staging budget counts
@@ -54,7 +55,8 @@ FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
 
 @dataclasses.dataclass
 class EngineState:
-    cold: torch.Tensor           # (rows_per_shard, D) fp32, or int8 codes
+    cold: torch.Tensor           # (n_shards * rows_per_shard, D) fp32, or
+    #                              int8 codes; shard s at rows_per_shard * s
     hot: torch.Tensor            # (hot_rows, D) fp32 (never quantized)
     page_scales: torch.Tensor    # (num_pages,) f32 per-page dequant scales,
     #                              indexed by *global* page id (all ones for
@@ -69,7 +71,8 @@ class EngineState:
 
 
 class PIFSEmbeddingEngine:
-    """Paged multi-table embedding with a hot tier, on one device."""
+    """Paged multi-table embedding with a hot tier and ``n_shards`` cold
+    shards, on one device."""
 
     DEDUP_MODES = ("off", "auto", "on")
     FRONT_END_MODES = ("split", "fused")
@@ -89,8 +92,6 @@ class PIFSEmbeddingEngine:
         ``validate_ids`` makes lookups check ids against the padded
         address space on the host and raise, instead of reading whatever
         an out-of-range id addresses."""
-        if paging.n_shards != 1:
-            raise NotImplementedError(_TODO["tp"])
         if dedup not in self.DEDUP_MODES:
             raise ValueError(f"unknown dedup {dedup!r}; "
                              f"expected one of {self.DEDUP_MODES}")
@@ -264,10 +265,6 @@ class PIFSEmbeddingEngine:
         if dedup not in self.DEDUP_MODES:
             raise ValueError(f"unknown dedup {dedup!r}; "
                              f"expected one of {self.DEDUP_MODES}")
-        if mode == "pond":
-            raise NotImplementedError(_TODO["pond"])
-        if combine == "psum_scatter":
-            raise NotImplementedError(_TODO["psum_scatter"])
         return dedup
 
     def lookup(self, state: EngineState, indices: torch.Tensor,
@@ -278,7 +275,10 @@ class PIFSEmbeddingEngine:
         """Pooled lookup: indices (B, G, L) int32 global row ids, optional
         weights (B, G, L) f32 -> (B, G, D) f32.  ``tiers='hot_only'`` reads
         the hot tier only (cold contributions are exact zeros; the serving
-        brown-out rung).  ``impl``: see ``kernels/ops.py``.
+        brown-out rung).  ``combine='psum_scatter'`` returns the same
+        values as 'psum' and raises where the reference cannot split the
+        bags (pond: the batch) over the shards.  ``impl``: see
+        ``kernels/ops.py``.
 
         ``dedup`` ('off' | 'auto' | 'on', None = the engine default):
         gather-once coalescing, bitwise equal to 'off'.  The decision is
@@ -293,8 +293,9 @@ class PIFSEmbeddingEngine:
                tuple(indices.shape), weights is not None)
         dedup_on = self._resolve_dedup(key, dedup, state, indices)
         self._calls += 1
-        return self._lookup_block(state, indices, weights, impl=impl,
-                                  tiers=tiers, dedup=dedup_on)
+        return self._lookup_block(state, indices, weights, mode=mode,
+                                  combine=combine, impl=impl, tiers=tiers,
+                                  dedup=dedup_on)
 
     def lookup_interact(self, state: EngineState, indices: torch.Tensor,
                         dense_feature: torch.Tensor,
@@ -306,11 +307,16 @@ class PIFSEmbeddingEngine:
         """Pooled lookup fused with the DLRM dot interaction: indices
         (B, G, L), dense_feature (B, D) the bottom-MLP output (feature row
         0) -> (B, P) packed lower triangle.  ``front_end='split'`` pools
-        then interacts with two kernels; ``'fused'`` resolves, on one
-        device, to the single three-phase kernel.  The resolution is
+        (:meth:`lookup`'s datapath for ``mode``) then interacts;
+        ``'fused'`` resolves to the single three-phase kernel at one shard
+        in pifs/beacon, and to ``'fused_tp'`` at n_shards > 1 or in pond:
+        a partial pool per shard, the cold tiles summed in shard order and
+        the resume kernel (:meth:`_resolve_front_end`).  The resolution is
         recorded in ``plan_stats()['front_end']``, the ``dedup`` one as in
-        :meth:`lookup`.  Split and fused, dedup on or off, are bitwise
-        equal."""
+        :meth:`lookup`.  ``combine`` only keys the record, as in the
+        reference.  For pifs/beacon, split and fused, dedup on or off, are
+        bitwise equal; pond's fused front end pools before the shard sum,
+        so it equals pifs, not pond's split path, bitwise."""
         dedup = self._check_knobs(mode, combine, dedup)
         if front_end not in self.FRONT_END_MODES:
             raise ValueError(f"unknown front_end {front_end!r}; "
@@ -326,32 +332,49 @@ class PIFSEmbeddingEngine:
                weights is not None)
         rec = self._fe_plans.get(key)
         if rec is None:
-            rec = self._fe_plans[key] = self._resolve_front_end(front_end)
-        fused = rec["resolved"] == "fused"
+            rec = self._fe_plans[key] = self._resolve_front_end(front_end,
+                                                                mode)
+        resolved = rec["resolved"]
         dedup_on = self._resolve_dedup(
             key, dedup, state, indices,
-            fused_blocks=FUSED_BLOCK_B if fused else None)
+            fused_blocks=None if resolved == "split" else FUSED_BLOCK_B)
         self._calls += 1
-        if fused:
+        if resolved == "fused":
             return self._interact_block_fused(state, indices, dense_feature,
                                               weights, impl=impl,
                                               dedup=dedup_on)
-        pooled = self._lookup_block(state, indices, weights, impl=impl,
+        if resolved == "fused_tp":
+            return self._interact_block_fused_tp(
+                state, indices, dense_feature, weights, impl=impl,
+                dedup=dedup_on)
+        pooled = self._lookup_block(state, indices, weights, mode=mode,
+                                    combine="psum", impl=impl,
                                     dedup=dedup_on)
         feats = torch.cat([dense_feature[:, None, :], pooled], dim=1)
         return kernel_ops.dot_interaction(feats, impl=impl)
 
-    @staticmethod
-    def _resolve_front_end(front_end: str) -> dict:
-        """One device is the reference's tp == 1 config, where a fused
-        request resolves to the single three-phase kernel (tp > 1 and pond
-        would resolve 'fused_tp'; neither is ported yet)."""
+    def _resolve_front_end(self, front_end: str, mode: str) -> dict:
+        """The reference's resolution, with tp = ``n_shards``: 'split' as
+        requested; a fused request at tp > 1, or in pond, resolves
+        'fused_tp' (partial pool per shard -> shard sum of the cold tiles
+        -> resume); otherwise 'fused', the single three-phase kernel."""
+        tp = self.cfg.n_shards
         if front_end == "split":
             resolved, reason = "split", "requested"
+        elif tp > 1:
+            resolved, reason = "fused_tp", (
+                f"tp-sharded masked partials (tp={tp}): each shard pools "
+                "its partial (B, F, D) cold tile; the cross-shard psum "
+                "lands between the partial-pool and resume kernels")
+        elif mode == "pond":
+            resolved, reason = "fused_tp", (
+                "pond requesting fusion pools cold partials before the "
+                "hot/cold add (partial-pool -> psum -> resume) instead of "
+                "shipping raw rows")
         else:
             resolved, reason = "fused", "replicated/dp-sharded config"
         return {"requested": front_end, "resolved": resolved,
-                "reason": reason, "tp": 1}
+                "reason": reason, "tp": tp}
 
     # ------------------------------------------------------------ dedup
     def _resolve_dedup(self, key, dedup: str, state: EngineState,
@@ -359,7 +382,9 @@ class PIFSEmbeddingEngine:
                        fused_blocks: Optional[int] = None) -> bool:
         """Freeze the gather-once decision for one signature (the
         reference's, at dp = 1).  'on' falls back when the worst-case
-        staging exceeds ``dedup_staging_bytes``; 'auto' also needs the best
+        staging of one device exceeds ``dedup_staging_bytes``: one shard's
+        entries, as each of the reference's devices stages its own (here
+        the S shards' stagings are live at once); 'auto' also needs the best
         duplicate-factor evidence -- the page histogram's expectation, the
         factor measured on this first batch, or the serving hint -- to
         reach ``dedup_auto_threshold``.  Runs on the host once per
@@ -425,10 +450,10 @@ class PIFSEmbeddingEngine:
     def dedup_factor(self, state: EngineState, indices,
                      weights=None) -> dict:
         """Measured duplicate-access factor of one batch: a host replay of
-        what the gather-once datapath gathers (unique owned cold rows plus
-        unique hot rows), counting weight != 0 entries only.  Returns
-        entries, unique_cold / unique_hot / unique_rows and ``factor =
-        entries / unique_rows``."""
+        what the gather-once datapath gathers (each shard's unique owned
+        cold rows plus the unique hot rows), counting weight != 0 entries
+        only.  Returns entries, unique_cold / unique_hot / unique_rows and
+        ``factor = entries / unique_rows``."""
         c = self.cfg
         idx = host(indices).reshape(-1)
         if weights is not None:
@@ -440,7 +465,8 @@ class PIFSEmbeddingEngine:
         shard = host(state.page_to_shard)[page]
         local = host(state.page_to_slot)[page].astype(np.int64) * ps \
             + idx % ps
-        unique_cold = int(np.unique(local[shard == 0]).size)
+        unique_cold = sum(int(np.unique(local[shard == s]).size)
+                          for s in range(c.n_shards))
         unique_hot = int(np.unique(local[shard == HOT_SHARD]).size)
         unique_rows = unique_cold + unique_hot
         return {"entries": int(idx.size), "unique_cold": unique_cold,
@@ -519,7 +545,7 @@ class PIFSEmbeddingEngine:
         placement-invariant in the quantized domain.  ``count_decay``
         scales the histogram after the move.
 
-        One device holds the whole cold tier, so no all-gather: the new
+        One device holds every shard's cold tier, so no all-gather: the new
         tiers gather from the old cold and hot tiers apart, and the
         concatenation the reference gathers from is never built."""
         c = self.cfg
@@ -573,64 +599,133 @@ class PIFSEmbeddingEngine:
 
     # ----------------------------------------------------------- the blocks
     def _address(self, state: EngineState, idx: torch.Tensor):
-        """Each entry's storage row, tier masks and (int8) page scale.  On
-        one device the cold tier is shard 0."""
+        """Each entry's storage row (local to its tier's slice), the
+        per-shard ownership masks (n_shards, *idx.shape), the hot mask and
+        (int8) the page scale."""
         ps = self.cfg.page_size
         idx = idx.long()
         page = idx // ps
         shard = state.page_to_shard[page]
         local_row = (state.page_to_slot[page].long() * ps
                      + idx % ps).to(torch.int32)
-        owned = shard == 0
+        S = self.cfg.n_shards
+        if S == 1:
+            owned = (shard == 0)[None]
+        else:
+            ids = torch.arange(S, dtype=shard.dtype, device=shard.device)
+            owned = shard[None] == ids.view((-1,) + (1,) * shard.dim())
         is_hot = shard == HOT_SHARD
         scale = state.page_scales[page] if self.quantized else None
         return local_row, owned, is_hot, scale
 
+    def _check_scatter(self, mode: str, tiers: str, b: int, nbags: int):
+        """The reference's psum_scatter preconditions (per-device batch b =
+        B at dp = 1)."""
+        tp = self.cfg.n_shards
+        if mode == "pond" and tiers == "all":
+            if b % tp:
+                raise ValueError(
+                    f"per-device batch ({b}) must divide tp ({tp}) "
+                    "for psum_scatter combine in pond mode")
+        elif nbags % tp:
+            raise ValueError(f"bags ({nbags}) must divide tp ({tp}) "
+                             "for psum_scatter combine")
+
     def _lookup_block(self, state: EngineState, idx: torch.Tensor,
-                      weights: Optional[torch.Tensor], *, impl: str,
-                      tiers: str = "all", dedup: bool = False
-                      ) -> torch.Tensor:
-        """The split datapath: per-tier masked partial SLS, then
-        ``cold + hot``."""
+                      weights: Optional[torch.Tensor], *, mode: str,
+                      combine: str, impl: str, tiers: str = "all",
+                      dedup: bool = False) -> torch.Tensor:
+        """The split datapath, every shard's block of the reference's
+        ``_lookup_block`` on this device: the hot tier once; pifs/beacon
+        pool each shard's cold partial (one launch for all shards) and sum
+        them in shard order, then ``+ hot``; pond gathers each shard's raw
+        rows, dequantizes them after the gather, weights them, sums them
+        over shards and pools them over l (only the hot tier dedups)."""
         b, G, L = idx.shape
+        nbags = b * G
+        if combine == "psum_scatter":
+            self._check_scatter(mode, tiers, b, nbags)
         local_row, owned, is_hot, scale = self._address(
-            state, idx.reshape(b * G, L))
-        w = None if weights is None else weights.reshape(b * G, L)
+            state, idx.reshape(nbags, L))
+        w = None if weights is None else weights.reshape(nbags, L)
         hot_out = sls_ops.masked_partial_sls_dense(
             state.hot, local_row, is_hot, w, impl=impl, dedup=dedup)
         if tiers == "hot_only":
             return hot_out.reshape(b, G, -1)
-        cold_part = sls_ops.masked_partial_sls_dense(
-            state.cold, local_row, owned, w, impl=impl, scales=scale,
-            dedup=dedup)
-        # the reference psums cold_part over the tp axis (the identity at
-        # tp = 1) and adds hot_out: keep that operand order
-        return (cold_part + hot_out).reshape(b, G, -1)
+        if mode == "pond":
+            cold_out = self._pond_cold(state, local_row, owned, w, scale)
+        else:
+            cold_out = shard_sum(sls_ops.masked_partial_sls_dense(
+                state.cold, local_row, owned, w, impl=impl, scales=scale,
+                dedup=dedup))
+        # the reference adds the summed cold partials and hot_out in this
+        # operand order
+        return (cold_out + hot_out).reshape(b, G, -1)
+
+    def _pond_cold(self, state: EngineState, local_row: torch.Tensor,
+                   owned: torch.Tensor, w: Optional[torch.Tensor],
+                   scale: Optional[torch.Tensor]) -> torch.Tensor:
+        """Pond's cold tier (communicate, then reduce): per shard the raw
+        owned rows of its slice (zeros elsewhere), dequantized after the
+        gather and weighted; the (nbags * L, D) rows summed over shards
+        (exact: one shard owns each entry), then pooled over l."""
+        nbags, L = local_row.shape
+        R = self.cfg.rows_per_shard
+        flat = local_row.reshape(-1)
+        parts = []
+        for s in range(self.cfg.n_shards):
+            rows = sls_ops.masked_gather_rows(
+                state.cold[s * R:(s + 1) * R], flat, owned[s].reshape(-1))
+            if self.quantized:
+                rows = quant.dequantize_rows(rows, scale.reshape(-1)[:, None])
+            if w is not None:
+                rows = rows * w.reshape(-1)[:, None]
+            parts.append(rows)
+        rows = shard_sum(parts)
+        return rows.reshape(nbags, L, -1).sum(dim=1)
 
     def _interact_block_fused(self, state: EngineState, idx: torch.Tensor,
                               x: torch.Tensor,
                               weights: Optional[torch.Tensor], *, impl: str,
                               dedup: bool = False) -> torch.Tensor:
-        """The fused datapath: the same address math as
+        """The fused datapath (one shard): the same address math as
         :meth:`_lookup_block`, then the single-kernel SLS -> interaction."""
         local_row, owned, is_hot, scale = self._address(state, idx)
         return sls_ops.fused_front_end_dense(
+            state.cold, state.hot, x, local_row, owned[0], is_hot,
+            weights=weights, scales=scale, impl=impl, dedup=dedup)
+
+    def _interact_block_fused_tp(self, state: EngineState, idx: torch.Tensor,
+                                 x: torch.Tensor,
+                                 weights: Optional[torch.Tensor], *,
+                                 impl: str, dedup: bool = False
+                                 ) -> torch.Tensor:
+        """The fused_tp datapath: every shard pools its owned rows into its
+        (B, F, D) cold tile and the hot tier into one hot tile (one
+        launch), then the resume kernel sums the cold tiles in shard order
+        (the reference's psum), adds the hot tile and interacts.  Each
+        shard pools in the split path's l-order, so this equals split
+        bitwise."""
+        local_row, owned, is_hot, scale = self._address(state, idx)
+        part_c, part_h = sls_ops.fused_partial_pool_dense(
             state.cold, state.hot, x, local_row, owned, is_hot,
             weights=weights, scales=scale, impl=impl, dedup=dedup)
+        return sls_ops.fused_resume_dense(part_c, part_h, impl=impl)
 
 
 def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,
                       hot_fraction: float = 0.05, page_bytes: int = 4096,
                       storage: str = "fp32", dedup: str = "off",
-                      validate_ids: bool = False
+                      validate_ids: bool = False, n_shards: int = 1
                       ) -> Tuple[PIFSEmbeddingEngine, np.ndarray]:
-    """Stack tables into one engine address space on one device.
+    """Stack tables into one engine address space on one device, its cold
+    tier in ``n_shards`` shards (the reference's tp axis).
 
     Returns (engine, offsets) where offsets[t] is added to table-t ids.
     Each table starts on a page boundary, so pages never straddle tables.
     Raises if the address space exceeds int32 (row ids are int32 on the
     device)."""
-    cfg0 = PagingConfig(total_rows=1, dim=dim, n_shards=1,
+    cfg0 = PagingConfig(total_rows=1, dim=dim, n_shards=n_shards,
                         page_bytes=page_bytes, itemsize=4,
                         hot_fraction=hot_fraction, storage=storage)
     ps = cfg0.page_size

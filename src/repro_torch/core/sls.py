@@ -10,6 +10,14 @@ the impl: with 0/1 weights they are bitwise equal.
 Gather-once dedup (``dedup=True``) gathers and dequantizes every unique
 owned row once into a staging buffer and accumulates through a slot per
 entry in the same l order, so it is bitwise equal to ``dedup=False``.
+
+Shards.  The cold tier of an engine with S shards is S equal slices of
+one tensor, and a per-shard ownership mask (S, ...) pools each shard's
+slice into its own partial, all S in one kernel launch: the SLS pools
+the shards as S stacked batches of bags on the whole tier (each shard's
+rows offset by its slice), the partial pool runs one grid row per shard.
+Dedup plans of the S shards are one plan over those disjoint rows, so
+each shard's staging holds what the reference's per-shard plan holds.
 """
 from __future__ import annotations
 
@@ -75,6 +83,14 @@ def dedup_plan(local_rows: torch.Tensor, owned: torch.Tensor,
                      unique_scales)
 
 
+def _stacked_rows(local_rows: torch.Tensor, S: int, R: int) -> torch.Tensor:
+    """(..., L) rows local to a slice -> (S, ..., L) rows of the whole
+    tier, shard s's offset by its slice start s * R."""
+    base = torch.arange(0, S * R, R, dtype=torch.int32,
+                        device=local_rows.device)
+    return local_rows[None] + base.view((S,) + (1,) * local_rows.dim())
+
+
 def masked_partial_sls_dense(local_storage: torch.Tensor,
                              local_rows: torch.Tensor, owned: torch.Tensor,
                              weights: Optional[torch.Tensor] = None,
@@ -88,10 +104,27 @@ def masked_partial_sls_dense(local_storage: torch.Tensor,
     dequantize an int8 ``local_storage`` per gathered row before the
     weighted add.  ``impl``: see ``kernels/ops.py``.
 
+    ``owned`` (S, B, L) pools S shards, the S equal slices of
+    ``local_storage`` (``local_rows`` local to a slice), into (S, B, D)
+    per-shard partials, in one launch.
+
     ``dedup=True`` gathers each unique owned row once (:func:`dedup_plan`);
     when ``B*L`` exceeds ``dedup_capacity`` staging rows it falls back to
     the per-entry gather, which is exact too."""
     B, L = local_rows.shape
+    if owned.dim() == 3 and owned.shape[0] == 1:     # one shard: no stacking
+        return masked_partial_sls_dense(local_storage, local_rows, owned[0],
+                                        weights, impl, scales, dedup,
+                                        dedup_capacity)[None]
+    if owned.dim() == 3:
+        S = owned.shape[0]
+        rows = _stacked_rows(local_rows, S, local_storage.shape[0] // S)
+        rep = (lambda t: None if t is None else t.repeat(S, 1))
+        out = masked_partial_sls_dense(
+            local_storage, rows.reshape(S * B, L), owned.reshape(S * B, L),
+            rep(weights), impl, rep(scales), dedup,
+            None if dedup_capacity is None else S * dedup_capacity)
+        return out.reshape(S, B, -1)
     if dedup and dedup_capacity is not None and B * L > dedup_capacity:
         dedup = False                      # capacity overflow: exact fallback
     if B == 0 or L == 0:
@@ -145,3 +178,91 @@ def fused_front_end_dense(cold_storage: torch.Tensor,
             owned, is_hot, weights, impl=impl)
     return ops.fused_front_end(cold_storage, hot_storage, x, local_rows,
                                owned, is_hot, weights, scales, impl=impl)
+
+
+def fused_partial_pool_dense(cold_storage: torch.Tensor,
+                             hot_storage: torch.Tensor, x: torch.Tensor,
+                             local_rows: torch.Tensor, owned: torch.Tensor,
+                             is_hot: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
+                             scales: Optional[torch.Tensor] = None,
+                             impl: str = "cuda", dedup: bool = False):
+    """The fused front end stopped before the interaction: the per-tier
+    partial feature tiles ``(part_c, part_h)``.
+
+    ``part_c`` holds the cold-tier partial pools with an all-zero feature
+    row 0 (the tile summed across shards: x must not be counted once per
+    shard); ``part_h`` the hot-tier pools with ``x`` in row 0 (the hot
+    tier is replicated, pooled once).  ``owned`` (B, G, L) pools one
+    shard into ``part_c`` (B, F, D); (S, B, G, L) pools the S equal slices
+    of ``cold_storage`` into (S, B, F, D).  Each shard pools its own rows
+    in the split path's l-order, so
+    ``fused_resume_dense(part_c, part_h)`` equals the split composition
+    bitwise.  ``dedup=True`` builds one plan over the shards' cold rows
+    (their rows are disjoint, so each shard stages what its own plan
+    would) and one over the hot rows; the tiles do not change."""
+    B, G, L = local_rows.shape
+    D = cold_storage.shape[-1]
+    F = G + 1
+    if B == 0 or L == 0 or G == 0:
+        part_c = torch.zeros(owned.shape[:-3] + (B, F, D),
+                             dtype=torch.float32, device=x.device)
+        part_h = torch.zeros((B, F, D), dtype=torch.float32, device=x.device)
+        part_h[:, 0] = x
+        return part_c, part_h
+    if hot_storage.shape[0] == 0:
+        # the BEACON placement: one always-resident line (see
+        # fused_front_end_dense)
+        hot_storage = torch.zeros((1, D), dtype=hot_storage.dtype,
+                                  device=hot_storage.device)
+    if dedup:
+        cp, hp = partial_pool_plans(cold_storage.shape[0], local_rows, owned,
+                                    is_hot, scales)
+        return ops.fused_partial_pool_dedup(cold_storage, hot_storage, x, cp,
+                                            hp, owned, is_hot, weights,
+                                            impl=impl)
+    return ops.fused_partial_pool(cold_storage, hot_storage, x, local_rows,
+                                  owned, is_hot, weights, scales, impl=impl)
+
+
+def partial_pool_plans(cold_rows: int, local_rows: torch.Tensor,
+                       owned: torch.Tensor, is_hot: torch.Tensor,
+                       scales: Optional[torch.Tensor] = None):
+    """The gather-once plans of a partial pool: one over every shard's
+    owned cold rows (rows of the whole ``cold_rows``-row tier; slots
+    shaped like ``owned``) and one over the hot rows (slots (B, G, L))."""
+    B, G, L = local_rows.shape
+    nb = B * G
+    S = owned.shape[0] if owned.dim() == 4 else 1
+    flat = local_rows.reshape(nb, L)
+    rows = _stacked_rows(flat, S, cold_rows // S)
+    cp = dedup_plan(rows.reshape(S * nb, L), owned.reshape(S * nb, L),
+                    None if scales is None
+                    else scales.reshape(nb, L).repeat(S, 1))
+    hp = dedup_plan(flat, is_hot.reshape(nb, L))
+    return (cp._replace(slots=cp.slots.reshape(owned.shape)),
+            hp._replace(slots=hp.slots.reshape(B, G, L)))
+
+
+def fused_resume_dense(part_c: torch.Tensor, part_h: torch.Tensor,
+                       impl: str = "cuda") -> torch.Tensor:
+    """Phase 3 on the partial tiles: ``part_c`` (B, F, D), or (S, B, F, D)
+    summed in shard order (the one-device psum), plus ``part_h`` -- the
+    split path's ``cold + hot`` operand order -- then the interaction ->
+    (B, P) packed lower triangle."""
+    B, F = part_h.shape[:2]
+    P = F * (F - 1) // 2
+    if B == 0 or F == 1:
+        return torch.zeros((B, P), dtype=torch.float32, device=part_h.device)
+    return ops.fused_resume(part_c, part_h, impl=impl)
+
+
+def masked_gather_rows(local_storage: torch.Tensor, local_rows: torch.Tensor,
+                       owned: torch.Tensor) -> torch.Tensor:
+    """Pond's per-shard step: the raw rows, zero where not owned, (N,) ->
+    (N, D) in the storage's dtype (the caller dequantizes after the
+    gather).  Plain PyTorch: the reference computes it outside any Pallas
+    kernel."""
+    safe = torch.where(owned, local_rows, torch.zeros_like(local_rows))
+    rows = local_storage[safe.long()]
+    return rows * owned.to(rows.dtype)[:, None]

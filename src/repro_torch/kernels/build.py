@@ -5,11 +5,12 @@ Each ``csrc/<stem>.cu`` has a plain C interface and compiles on its own with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/<stem>-<hash>.so csrc/<stem>.cu
 
-A gather-once (dedup) kernel shares its source, and its accumulate, with
-the kernel it varies: ``masked_sls_dedup`` lives in ``masked_sls.cu`` and
-``fused_front_end_dedup`` in ``fused_front_end.cu``.
-
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+A kernel that varies another shares its source with it: the gather-once
+(dedup) ``masked_sls_dedup`` lives in ``masked_sls.cu``;
+``fused_front_end_dedup`` and the partial pools ``fused_partial_pool`` and
+``fused_partial_pool_dedup`` in ``fused_front_end.cu``; ``fused_resume`` in
+``dot_interaction.cu``.
 The build runs at first use; every missing library is compiled by its own
 ``nvcc`` process, all started together.  The hash covers every source and
 the flags, so an edited source is rebuilt.  Libraries are loaded with
@@ -66,6 +67,16 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo("fused_front_end_dedup",
                "src/repro/kernels/sls.py:683 (fused_front_end_dedup_pallas)",
                stem="fused_front_end"),
+    KernelInfo("fused_partial_pool",
+               "src/repro/kernels/sls.py:750 (fused_partial_pool_pallas)",
+               stem="fused_front_end"),
+    KernelInfo("fused_partial_pool_dedup",
+               "src/repro/kernels/sls.py:818 "
+               "(fused_partial_pool_dedup_pallas)",
+               stem="fused_front_end"),
+    KernelInfo("fused_resume",
+               "src/repro/kernels/sls.py:871 (fused_resume_pallas)",
+               stem="dot_interaction"),
 )}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -7,6 +7,11 @@ never in memory.  Bound by bytes (about 2 flops per byte at F = 9); a block
 stages a few samples' tiles in shared memory and each thread reduces whole
 dots in a fixed order over D, with the device function the fused front
 end shares.  Timings on the card are in ``PERF.md``.
+
+``fused_resume`` (same source) replaces ``repro/kernels/sls.py:
+fused_resume_pallas``: the tile it loads is the partial-pool tiles' sum,
+the S cold shards' tiles in shard order plus the hot tile, then the same
+device function.  Bound by bytes ((S + 1) tiles in, (B, P) out).
 """
 from __future__ import annotations
 
@@ -57,4 +62,43 @@ def dot_interaction(feats: torch.Tensor,
              int(self_interaction), S, _stream(feats))
     build.check("dot_interaction", err)
     build.KERNELS["dot_interaction"].launches += 1
+    return out
+
+
+def check_fused_resume(part_c: torch.Tensor, part_h: torch.Tensor) -> None:
+    """part_c (S, B, F, D) and part_h (B, F, D), float32, contiguous."""
+    check_dot_interaction(part_h)
+    if (part_c.dim() != 4 or part_c.dtype != torch.float32
+            or tuple(part_c.shape[1:]) != tuple(part_h.shape)):
+        raise TypeError(f"part_c: expected (S, *{tuple(part_h.shape)}) "
+                        f"float32, got {part_c.dtype} of shape "
+                        f"{tuple(part_c.shape)}")
+    if not part_c.is_contiguous():
+        raise ValueError("part_c must be contiguous")
+    if part_c.device != part_h.device:
+        raise ValueError(f"part_c is on {part_c.device}, part_h on "
+                         f"{part_h.device}")
+
+
+def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor
+                 ) -> torch.Tensor:
+    """(S, B, F, D) cold and (B, F, D) hot tiles -> (B, P) on the card
+    (plain version: ``ref.fused_resume_ref``)."""
+    check_fused_resume(part_c, part_h)
+    if part_h.device.type != "cuda":
+        raise ValueError("the fused_resume kernel takes CUDA tensors")
+    S, B, F, D = part_c.shape
+    P = F * (F - 1) // 2
+    out = torch.empty((B, P), dtype=torch.float32, device=part_h.device)
+    if B == 0 or P == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(
+        part_h.device).multi_processor_count
+    NS = samples_per_block(B, F, D, P, n_sm)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fn = build.entry("fused_resume", [P_, P_, P_, I_, I_, I_, I_, I_, I_, P_])
+    err = fn(part_c.data_ptr(), part_h.data_ptr(), out.data_ptr(), B, F, D,
+             P, S, NS, _stream(part_h))
+    build.check("fused_resume", err)
+    build.KERNELS["fused_resume"].launches += 1
     return out

@@ -109,3 +109,62 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
     return ref.fused_front_end_dedup_ref(
         cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
         owned, is_hot, weights, cp.unique_scales)
+
+
+def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
+                       x: torch.Tensor, rows: torch.Tensor,
+                       owned: torch.Tensor, is_hot: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       scales: Optional[torch.Tensor] = None,
+                       impl: str = "cuda"):
+    """The fused front end stopped before the interaction: the partial
+    feature tiles ``(part_c, part_h)``.  ``owned`` (B, G, L) pools one cold
+    shard into ``part_c`` (B, F, D); (S, B, G, L) pools the S equal slices
+    of ``cold`` (``rows`` local to a slice) into (S, B, F, D), in one
+    launch on the card.  ``part_h`` (B, F, D) holds x and the hot pools."""
+    one = owned.dim() == 3
+    own4 = owned[None] if one else owned
+    _sls.check_fused_partial_pool(cold, hot, x, rows, own4, is_hot, weights,
+                                  scales)
+    if _use_kernel(impl, cold):
+        part_c, part_h = _sls.fused_partial_pool(cold, hot, x, rows, own4,
+                                                 is_hot, weights, scales)
+        return (part_c[0] if one else part_c), part_h
+    return ref.fused_partial_pool_ref(cold, hot, x, rows, owned, is_hot,
+                                      weights, scales)
+
+
+def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
+                             x: torch.Tensor, cold_plan, hot_plan,
+                             owned: torch.Tensor, is_hot: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
+                             impl: str = "cuda"):
+    """Gather-once partial pool: one ``core.sls.DedupPlan`` for the cold
+    tier (slots shaped like ``owned``: (B, G, L), or (S, B, G, L) with
+    rows of the whole ``cold``) and one for the hot tier (slots
+    (B, G, L)).  Bitwise equal to :func:`fused_partial_pool` on the same
+    entries."""
+    cp, hp = cold_plan, hot_plan
+    one = owned.dim() == 3
+    own4, cs4 = (owned[None], cp.slots[None]) if one else (owned, cp.slots)
+    args = (cold, hot, x, cp.unique_rows, cs4, cp.n_slots, hp.unique_rows,
+            hp.slots, hp.n_slots, own4, is_hot, weights, cp.unique_scales)
+    _sls.check_fused_partial_pool_dedup(*args)
+    if _use_kernel(impl, cold):
+        part_c, part_h = _sls.fused_partial_pool_dedup(*args)
+        return (part_c[0] if one else part_c), part_h
+    return ref.fused_partial_pool_dedup_ref(
+        cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
+        owned, is_hot, weights, cp.unique_scales)
+
+
+def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor,
+                 impl: str = "cuda") -> torch.Tensor:
+    """Phase 3 on the partial tiles: ``part_c`` (B, F, D), or (S, B, F, D)
+    summed in shard order, plus ``part_h``, then the interaction ->
+    (B, P)."""
+    c4 = part_c[None] if part_c.dim() == 3 else part_c
+    _interaction.check_fused_resume(c4, part_h)
+    if _use_kernel(impl, part_h):
+        return _interaction.fused_resume(c4, part_h)
+    return ref.fused_resume_ref(part_c, part_h)

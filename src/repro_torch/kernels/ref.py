@@ -5,11 +5,12 @@ wrappers take these for CPU tensors; on the card only ``chip_smoke.py``
 and an explicit ``impl="torch"`` call them, to hold the kernels against
 them.
 
-Accumulation order is the kernels' fixed l = 0..L-1 order.  The plain
-versions multiply then add (two roundings) where the kernels use one
-``fmaf``: with factors f = owned*w of 0 or 1 the product is exact and the
-two agree bitwise (all serving traffic); with general weights they may
-differ by at most 1 ulp per accumulate step.
+Accumulation order is the kernels' fixed l = 0..L-1 order, and partials
+of several cold-tier shards are summed in shard order (:func:`shard_sum`).
+The plain versions multiply then add (two roundings) where the kernels
+use one ``fmaf``: with factors f = owned*w of 0 or 1 the product is exact
+and the two agree bitwise (all serving traffic); with general weights
+they may differ by at most 1 ulp per accumulate step.
 """
 from __future__ import annotations
 
@@ -180,3 +181,106 @@ def fused_front_end_dedup_ref(cold: torch.Tensor, hot: torch.Tensor,
     pooled = (cold_p + hot_p).reshape(B, G, D)
     feats = torch.cat([x[:, None, :].to(out_dtype), pooled], dim=1)
     return dot_interaction_ref(feats)
+
+
+def shard_sum(parts: torch.Tensor) -> torch.Tensor:
+    """Sum per-shard partials (S, ...) in shard order, ((p0 + p1) + p2) +
+    ..., one rounding per add: the order of the reference's psum over the
+    tp axis, and of the kernels that fold it (``fused_resume``)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def fused_partial_pool_ref(cold: torch.Tensor, hot: torch.Tensor,
+                           x: torch.Tensor, rows: torch.Tensor,
+                           owned: torch.Tensor, is_hot: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None,
+                           scales: Optional[torch.Tensor] = None,
+                           out_dtype=torch.float32):
+    """Phases 1-2 of :func:`fused_front_end_ref`, stopped before the
+    interaction -- the plain version of the ``fused_partial_pool`` kernel.
+
+    Returns the per-tier (B, F, D) partial feature tiles: ``part_c``, the
+    cold-tier pools with an all-zero feature row 0 (the tile that is
+    summed across shards: x must not be counted once per shard), and
+    ``part_h``, the hot-tier pools with ``x`` in row 0 (the hot tier is
+    replicated and pooled once).
+
+    ``owned`` (B, G, L) pools one shard.  ``owned`` (S, B, G, L) pools S
+    shards whose cold tiers are the S equal slices of ``cold`` (``rows``
+    are local to a slice) and returns ``part_c`` (S, B, F, D)."""
+    B, G, L = rows.shape
+    D = cold.shape[-1]
+    nb = B * G
+    flat = rows.reshape(nb, L)
+    w = None if weights is None else weights.reshape(nb, L)
+    sc = None if scales is None else scales.reshape(nb, L)
+
+    def cold_pool(table, own):
+        return _fixed_order_masked_sls(table, flat, own.reshape(nb, L), w,
+                                       sc, out_dtype).reshape(B, G, D)
+
+    if owned.dim() == 4:
+        S = owned.shape[0]
+        R = cold.shape[0] // S
+        cold_p = torch.stack([cold_pool(cold[s * R:(s + 1) * R], owned[s])
+                              for s in range(S)])
+    else:
+        cold_p = cold_pool(cold, owned)
+    hot_p = _fixed_order_masked_sls(hot, flat, is_hot.reshape(nb, L), w,
+                                    None, out_dtype).reshape(B, G, D)
+    return _tiles(cold_p, hot_p, x, out_dtype)
+
+
+def _tiles(cold_p: torch.Tensor, hot_p: torch.Tensor, x: torch.Tensor,
+           out_dtype):
+    """(..., B, G, D) cold and (B, G, D) hot pools -> the two (B, F, D)
+    tiles: zeros, resp. x, in feature row 0."""
+    zero = cold_p.new_zeros(cold_p.shape[:-2] + (1, cold_p.shape[-1]))
+    return (torch.cat([zero, cold_p], dim=-2),
+            torch.cat([x[:, None, :].to(out_dtype), hot_p], dim=1))
+
+
+def fused_partial_pool_dedup_ref(cold: torch.Tensor, hot: torch.Tensor,
+                                 x: torch.Tensor, c_unique: torch.Tensor,
+                                 c_slots: torch.Tensor,
+                                 h_unique: torch.Tensor,
+                                 h_slots: torch.Tensor, owned: torch.Tensor,
+                                 is_hot: torch.Tensor,
+                                 weights: Optional[torch.Tensor] = None,
+                                 c_scales: Optional[torch.Tensor] = None,
+                                 out_dtype=torch.float32):
+    """Gather-once partial pool -- the plain version of the
+    ``fused_partial_pool_dedup`` kernel: each tier's staging
+    (:func:`masked_sls_dedup_ref`), then the tiles of
+    :func:`fused_partial_pool_ref`.  ``c_slots`` and ``owned`` are
+    (B, G, L), or (S, B, G, L) with one cold plan over all S shards'
+    slices of ``cold`` (``c_unique`` holds rows of the whole ``cold``)."""
+    B, G, L = h_slots.shape
+    D = cold.shape[-1]
+    nb = B * G
+    lead = owned.shape[:-3]
+    n = owned.shape[0] if lead else 1
+    w = None if weights is None else weights.reshape(nb, L).repeat(n, 1)
+    cold_p = masked_sls_dedup_ref(cold, c_unique, c_slots.reshape(n * nb, L),
+                                  owned.reshape(n * nb, L), w, c_scales,
+                                  out_dtype).reshape(lead + (B, G, D))
+    hot_p = masked_sls_dedup_ref(hot, h_unique, h_slots.reshape(nb, L),
+                                 is_hot.reshape(nb, L),
+                                 None if weights is None
+                                 else weights.reshape(nb, L), None,
+                                 out_dtype).reshape(B, G, D)
+    return _tiles(cold_p, hot_p, x, out_dtype)
+
+
+def fused_resume_ref(part_c: torch.Tensor, part_h: torch.Tensor
+                     ) -> torch.Tensor:
+    """Phase 3 on the partial tiles -- the plain version of the
+    ``fused_resume`` kernel: ``part_c`` (B, F, D), or (S, B, F, D) summed
+    in shard order (:func:`shard_sum`), plus ``part_h`` (the split path's
+    ``cold + hot`` operand order), then :func:`dot_interaction_ref`."""
+    if part_c.dim() == 4:
+        part_c = shard_sum(part_c)
+    return dot_interaction_ref(part_c + part_h)

@@ -18,6 +18,15 @@
   staging buffer the wrapper allocates, then the accumulate above reads it
   through the plan's slots.  Bound by bytes (each distinct row once, plus
   the staging round trip, which L2 holds while it fits).
+* ``fused_partial_pool`` and ``fused_partial_pool_dedup`` -- the fused
+  kernel (and its gather-once variant) stopped before the interaction, in
+  ``csrc/fused_front_end.cu``; they replace
+  ``repro/kernels/sls.py:fused_partial_pool_pallas`` and
+  ``fused_partial_pool_dedup_pallas``.  They write the two (B, F, D)
+  partial feature tiles ``part_c`` (per cold shard, row 0 zero) and
+  ``part_h`` (row 0 = x) that ``fused_resume`` (``kernels/interaction.py``)
+  finishes.  All S cold shards pool in one launch (one grid row each).
+  Bound by bytes: the gather plus the tiles written.
 
 These functions take CUDA tensors only and launch the kernel or raise.
 ``kernels/ops.py`` picks between them and the plain versions in
@@ -319,3 +328,142 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
     build.check("fused_front_end_dedup", err)
     build.KERNELS["fused_front_end_dedup"].launches += 1
     return out
+
+
+def _check_shard_masks(cold, owned, rows) -> None:
+    """``owned`` (S, B, G, L) over the S equal slices of ``cold``."""
+    if owned.dim() != 4 or tuple(owned.shape[1:]) != tuple(rows.shape):
+        raise ValueError(f"owned must be (S, *rows.shape) = (S, "
+                         f"{', '.join(map(str, rows.shape))}), got "
+                         f"{tuple(owned.shape)}")
+    S = owned.shape[0]
+    if S < 1 or cold.shape[0] % S:
+        raise ValueError(f"{S} shards do not split the {cold.shape[0]} "
+                         "cold-tier rows evenly")
+    _expect(owned, "owned", torch.bool, owned.shape, cold.device)
+
+
+def check_fused_partial_pool(cold, hot, x, rows, owned, is_hot, weights,
+                             scales) -> None:
+    """Input contract of the fused_partial_pool kernel (and its plain
+    version): ``fused_front_end``'s, with ``owned`` (S, B, G, L), one mask
+    per cold shard."""
+    _check_shard_masks(cold, owned, rows)
+    _check_fused_operands(cold, hot, x, rows, owned[0], is_hot, weights)
+    _expect(scales, "scales", torch.float32, rows.shape, cold.device)
+    if (cold.dtype == torch.int8) != (scales is not None):
+        raise ValueError("an int8 cold tier needs per-entry scales, and only "
+                         "an int8 cold tier takes them")
+
+
+def _tiles_out(S: int, B: int, F: int, D: int, dev):
+    return (torch.empty((S, B, F, D), dtype=torch.float32, device=dev),
+            torch.empty((B, F, D), dtype=torch.float32, device=dev))
+
+
+def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
+                       x: torch.Tensor, rows: torch.Tensor,
+                       owned: torch.Tensor, is_hot: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       scales: Optional[torch.Tensor] = None):
+    """Two-tier masked SLS into partial tiles, one launch for all S
+    shards: (B, G, L) entries, ``owned`` (S, B, G, L) and x (B, D) ->
+    ``part_c`` (S, B, F, D), ``part_h`` (B, F, D) on the card (plain
+    version: ``ref.fused_partial_pool_ref``)."""
+    check_fused_partial_pool(cold, hot, x, rows, owned, is_hot, weights,
+                             scales)
+    if cold.device.type != "cuda":
+        raise ValueError("the fused_partial_pool kernel takes CUDA tensors")
+    B, G, L = rows.shape
+    S = owned.shape[0]
+    D = cold.shape[1]
+    F = G + 1
+    part_c, part_h = _tiles_out(S, B, F, D, cold.device)
+    if B == 0:
+        return part_c, part_h
+    if L == 0 or G == 0:
+        raise ValueError("fused_partial_pool needs G, L >= 1 (core/sls.py "
+                         "answers empty bags itself, as the reference does)")
+    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
+    max_bb = fused_block(B, F, D, n_sm)
+    fn = build.entry("fused_partial_pool",
+                     [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, _P])
+    err = fn(cold.data_ptr(), cold.element_size(),
+             _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot),
+             cold.shape[0] // S, S, hot.data_ptr(), x.data_ptr(),
+             rows.data_ptr(), owned.data_ptr(), is_hot.data_ptr(),
+             _ptr(weights), _ptr(scales), part_c.data_ptr(),
+             part_h.data_ptr(), B, G, L, D, max_bb, _stream(cold))
+    build.check("fused_partial_pool", err)
+    build.KERNELS["fused_partial_pool"].launches += 1
+    return part_c, part_h
+
+
+def check_fused_partial_pool_dedup(cold, hot, x, c_unique, c_slots, c_n,
+                                   h_unique, h_slots, h_n, owned, is_hot,
+                                   weights, c_scales) -> None:
+    """Input contract of the fused_partial_pool_dedup kernel (and its plain
+    version): one cold plan over all S shards (``c_slots`` and ``owned``
+    (S, B, G, L), capacity S * B * G * L, rows of the whole cold tier) and
+    one hot plan (``h_slots`` (B, G, L))."""
+    _check_shard_masks(cold, owned, h_slots)
+    _check_fused_operands(cold, hot, x, h_slots, owned[0], is_hot, weights)
+    dev = cold.device
+    _expect(h_slots, "h_slots", torch.int32, h_slots.shape, dev)
+    _expect(c_slots, "c_slots", torch.int32, owned.shape, dev)
+    _expect_plan(c_unique, c_n, c_scales, c_slots.numel(), dev)
+    _expect_plan(h_unique, h_n, None, h_slots.numel(), dev)
+    if (cold.dtype == torch.int8) != (c_scales is not None):
+        raise ValueError("an int8 cold tier needs per-slot scales, and only "
+                         "an int8 cold tier takes them")
+
+
+def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
+                             x: torch.Tensor, c_unique: torch.Tensor,
+                             c_slots: torch.Tensor, c_n: torch.Tensor,
+                             h_unique: torch.Tensor, h_slots: torch.Tensor,
+                             h_n: torch.Tensor, owned: torch.Tensor,
+                             is_hot: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
+                             c_scales: Optional[torch.Tensor] = None):
+    """Gather-once partial pool on the card: both tiers' staging, then the
+    partial pool through the slots -> (``part_c`` (S, B, F, D),
+    ``part_h`` (B, F, D)) (plain version:
+    ``ref.fused_partial_pool_dedup_ref``)."""
+    check_fused_partial_pool_dedup(cold, hot, x, c_unique, c_slots, c_n,
+                                   h_unique, h_slots, h_n, owned, is_hot,
+                                   weights, c_scales)
+    if cold.device.type != "cuda":
+        raise ValueError("the fused_partial_pool_dedup kernel takes CUDA "
+                         "tensors")
+    B, G, L = h_slots.shape
+    S = owned.shape[0]
+    D = cold.shape[1]
+    F = G + 1
+    part_c, part_h = _tiles_out(S, B, F, D, cold.device)
+    if B == 0:
+        return part_c, part_h
+    if L == 0 or G == 0:
+        raise ValueError("fused_partial_pool_dedup needs G, L >= 1 "
+                         "(core/sls.py answers empty bags itself)")
+    Uc, Uh = c_slots.numel(), h_slots.numel()
+    c_stage = torch.empty((Uc, D), dtype=torch.float32, device=cold.device)
+    h_stage = torch.empty((Uh, D), dtype=torch.float32, device=cold.device)
+    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
+    max_bb = fused_block(B, F, D, n_sm)
+    fn = build.entry("fused_partial_pool_dedup",
+                     [_P, _I, _I64, _I, _I, _P, _I64, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _P])
+    err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0],
+             _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot), S,
+             hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
+             c_n.data_ptr(), _ptr(c_scales), h_unique.data_ptr(),
+             h_n.data_ptr(), c_stage.data_ptr(), h_stage.data_ptr(), Uc, Uh,
+             c_slots.data_ptr(), h_slots.data_ptr(), owned.data_ptr(),
+             is_hot.data_ptr(), _ptr(weights), part_c.data_ptr(),
+             part_h.data_ptr(), B, G, L, D, max_bb, _stream(cold))
+    build.check("fused_partial_pool_dedup", err)
+    build.KERNELS["fused_partial_pool_dedup"].launches += 1
+    return part_c, part_h

@@ -7,7 +7,10 @@ The port of ``repro.launch.serve`` with ``--batcher fixed``: a seeded
 zipfian request stream (the reference's ``serving/loadgen.request_stream``
 ids, bit for bit), a fixed-size batcher with exact padding, and the serve
 step (bottom MLP -> lookup -> interaction -> top MLP -> sigmoid) on the
-card.  Runs on CUDA unless ``--device cpu``.
+card.  Runs on CUDA unless ``--device cpu``.  ``--mode pifs|pond|beacon``
+is the engine's mode (the reference CLI's); the engine's cold-tier shard
+count is :func:`bind_model`'s ``n_shards`` (the reference CLI has no
+flag for it either).
 
 The hot tier starts placed by ``observe`` over a profile of the stream's
 first requests and ``plan_and_migrate``; serving then runs the reference
@@ -127,15 +130,18 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
                storage: str = "fp32", seed: int = 0,
                hot_fraction: float = 0.05,
                profile: Sequence[Request] = (),
-               dedup: str = "off") -> Binding:
+               dedup: str = "off", n_shards: int = 1) -> Binding:
     """Engine + random weights + state on ``device`` (the card unless
     ``"cpu"``).  Tables and weights are drawn from generators seeded with
     ``seed``, on the device itself.  ``profile`` places the hot tier:
     ``observe`` over its requests, then ``plan_and_migrate``; with no
-    profile the hot tier is empty.  ``dedup`` is the engine default."""
+    profile the hot tier is empty.  ``dedup`` is the engine default;
+    ``n_shards`` the cold tier's shards (the reference's tp), all on
+    ``device``."""
     dev = resolve_device(device)
     engine, _ = dlrm_mod.build_engine(cfg, dev, hot_fraction=hot_fraction,
-                                      storage=storage, dedup=dedup)
+                                      storage=storage, dedup=dedup,
+                                      n_shards=n_shards)
     gen = torch.Generator(device=dev)
     model = initialize(dlrm_mod.DLRM(cfg, dev), gen.manual_seed(seed))
     state = engine.init_state(gen.manual_seed(seed + 1))
@@ -243,7 +249,7 @@ _NOT_PORTED = {
     "scrub": (False, "--scrub is not ported yet (ROADMAP.md queue 1 item "
                      "12)"),
     "mesh_faults": (False, "--mesh-faults is not ported yet (ROADMAP.md "
-                           "queue 1 items 10 and 13)"),
+                           "queue 1 item 13)"),
 }
 
 
@@ -256,7 +262,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--storage", default="fp32", choices=["fp32", "int8"])
     ap.add_argument("--front-end", default="split",
                     choices=["split", "fused"])
-    ap.add_argument("--mode", default="pifs", choices=["pifs", "beacon"])
+    ap.add_argument("--mode", default="pifs",
+                    choices=["pifs", "pond", "beacon"])
     ap.add_argument("--requests", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)

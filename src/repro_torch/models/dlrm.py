@@ -31,14 +31,18 @@ from repro_torch.models.layers import MLP
 
 def build_engine(cfg: DLRMConfig, device: DeviceLike = None,
                  hot_fraction: float = 0.05, storage: str = "fp32",
-                 dedup: str = "off", validate_ids: bool = False
+                 dedup: str = "off", validate_ids: bool = False,
+                 n_shards: int = 1
                  ) -> Tuple[PIFSEmbeddingEngine, np.ndarray]:
     """The engine over the config's ``n_tables`` tables of ``emb_num``
-    rows; ``storage='int8'`` selects the quantized cold tier."""
+    rows; ``storage='int8'`` selects the quantized cold tier.
+    ``n_shards`` stands in for the reference's ``mesh`` argument: the
+    cold tier's shards (its tp axis), all on ``device``.  The MLPs stay
+    replicated, as the reference's ``mlp_specs`` keep them."""
     return engine_for_tables([cfg.emb_num] * cfg.n_tables, cfg.emb_dim,
                              device=device, hot_fraction=hot_fraction,
                              storage=storage, dedup=dedup,
-                             validate_ids=validate_ids)
+                             validate_ids=validate_ids, n_shards=n_shards)
 
 
 class DLRM(nn.Module):
@@ -70,7 +74,9 @@ class DLRM(nn.Module):
                 ) -> torch.Tensor:
         """CTR logits (B,).  ``front_end='fused'`` routes lookup + feature
         stacking + interaction through ``engine.lookup_interact`` (one
-        kernel on the card); ``tiers='hot_only'`` reads the hot tier only
+        kernel on the card at one shard in pifs/beacon; partial pool ->
+        resume at n_shards > 1 or in pond); ``mode`` is the engine's
+        (pifs, pond or beacon); ``tiers='hot_only'`` reads the hot tier only
         and forces the split front end, as the reference does.  ``dedup``
         is the engine's gather-once knob (None = the engine default)."""
         if front_end not in PIFSEmbeddingEngine.FRONT_END_MODES:

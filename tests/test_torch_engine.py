@@ -191,21 +191,34 @@ def test_empty_hot_tier_beacon_placement(mesh11):
 
 
 def test_not_ported_knobs_raise_and_name_the_roadmap(mesh11):
+    """The knobs earlier slices refused (pond, psum_scatter, n_shards > 1)
+    now run and agree with pifs/psum; unknown values still raise."""
     _, _, eng, state, offs, rng = _carried("fp32", mesh11)
     idx, w, x = map(torch.as_tensor, _batch(rng, offs, "01"))
+    base = eng.lookup(state, idx, w)
+    base_i = eng.lookup_interact(state, idx, x, w, front_end="fused")
     for kw in (dict(mode="pond"), dict(combine="psum_scatter")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eng.lookup(state, idx, w, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eng.lookup_interact(state, idx, x, w, front_end="fused", **kw)
+        got = eng.lookup(state, idx, w, **kw)
+        # pond pools over l after the shard sum: another order than pifs
+        np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_array_equal(
+            eng.lookup_interact(state, idx, x, w, front_end="fused",
+                                **kw).numpy(), base_i.numpy())
     with pytest.raises(ValueError):
         eng.lookup(state, idx, w, dedup="bogus")
     with pytest.raises(ValueError):
         eng.lookup(state, idx, w, mode="bogus")
     with pytest.raises(ValueError):
+        eng.lookup(state, idx, w, combine="bogus")
+    with pytest.raises(ValueError):
         eng.lookup_interact(state, idx, x[:, :4], w)
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        type(eng)(dataclasses.replace(eng.cfg, n_shards=2), device="cpu")
+    two = type(eng)(dataclasses.replace(eng.cfg, n_shards=2), device="cpu")
+    state2 = two.pack_state(*eng.export_state(state), table=None)
+    np.testing.assert_allclose(two.lookup(state2, idx, w).numpy(),
+                               eng.lookup(eng.pack_state(
+                                   *eng.export_state(state)), idx, w).numpy(),
+                               rtol=1e-6, atol=1e-7)
 
 
 def test_validate_ids_raises_on_out_of_range(mesh11):
