@@ -12,12 +12,16 @@
    no block size divides, and an empty hot tier -- and each gather-once
    (dedup) kernel against the kernel it varies, bitwise for every weight,
    on random, all-duplicate, all-unique and all-masked batches; the
-   partial pools (1 and 4 cold shards in one launch) and the resume
-   kernel against their plain versions, the gather-once partial pool
-   against the per-entry one (bitwise, every weight), and 4 shards'
-   partial pools summed in shard order and resumed against the split
-   composition of kernels (bitwise, every weight), with an empty hot tier
-   and with every entry masked;
+   partial pools (1, 2, 4, 8 and 12 cold shards in one launch; above 8
+   the grid rows of 8 shards) and the resume kernel against their plain
+   versions, the gather-once partial pool against the per-entry one
+   (bitwise, every weight), and S shards' partial pools summed in shard
+   order and resumed against the split composition of kernels (bitwise,
+   every weight), with an empty hot tier and with every entry masked;
+   rows of +-1e30 (int8: +-127) under every masked entry leave the tiles
+   unchanged; and the resume alone at B = 1, 31, 32, 2053, D in {16, 18,
+   64, 128} and S in {1, 2, 3, 4, 8, 12} against its plain version and,
+   bitwise, against dot_interaction of the shard-order sum;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -53,10 +57,12 @@
 7. times each kernel (CUDA events, L2 flushed, median), its plain version
    and the library call where one exists, beside its bound
    max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) from this run's inputs
-   (each distinct row counted once), times ``dedup_plan``, and times the
-   serve steps at batch 32 and 2048 with dedup off and on, at 4 shards
-   and in pond (host clock to a synchronize), with the device's busy time
-   in them from ``torch.profiler``.
+   (each distinct row counted once) -- the partial pools and the resume
+   at 4 shards and at 1 (pond's fused path) --, times ``dedup_plan``, and
+   times the serve steps at batch 32 and 2048 with dedup off and on, at 4
+   shards (fused also with dedup on) and in pond (host clock to a
+   synchronize), with the device's busy time and operations in them from
+   ``torch.profiler``.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -78,6 +84,7 @@ dots agree within 2 * D * 2^-23 * sum_d |x_i[d] * x_j[d]|.  Serve scores
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +106,32 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers line, spill line) for each entry function of an
+    ``-Xptxas -v`` report, names demangled with ``c++filt`` where the
+    toolchain has it."""
+    rows, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            rows.append((entry, line.split(":", 1)[-1].strip(), spill))
+            entry = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[0] for r in rows),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [r[0] for r in rows]
+    if len(names) != len(rows):
+        names = [r[0] for r in rows]
+    return [(n.split("(")[0], r[1], r[2]) for n, r in zip(names, rows)]
 
 
 def smi() -> str:
@@ -467,14 +500,17 @@ def dedup_kernel_checks(gen: torch.Generator) -> int:
 
 
 def partial_pool_kernel_checks(gen: torch.Generator) -> int:
-    """Rows 7-9: the partial pool (per shard, one launch), its gather-once
-    variant and the resume kernel, against their plain versions (bitwise
-    at 0/1 weights, within the SLS and dot tolerances otherwise), the
-    gather-once tiles against the per-entry tiles (bitwise, every weight)
-    and the composition -- S shards' partial pools, summed in shard order
-    and resumed -- against the split composition of kernels (bitwise,
-    every weight), at S = 1 and 4, with an empty hot tier and with every
-    entry masked."""
+    """Rows 7-9: the partial pool (all shards in one launch), its
+    gather-once variant and the resume kernel, against their plain versions
+    (bitwise at 0/1 weights, within the SLS and dot tolerances otherwise),
+    the gather-once tiles against the per-entry tiles (bitwise, every
+    weight) and the composition -- S shards' partial pools, summed in shard
+    order and resumed -- against the split composition of kernels (bitwise,
+    every weight), at S = 1, 2, 4, 8 and 12 (more than 8: the grouped
+    path), with an empty hot tier and with every entry masked; rows of
+    +-1e30 (int8: +-127) under every masked entry leave the tiles as they
+    are; and the resume alone at B = 1, 31, 32, 2053, D in {16, 18, 64,
+    128} (18: the scalar path) and S in {1, 2, 3, 4, 8, 12}."""
     from repro_torch.core import sls as core_sls
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import shard_sum
@@ -484,9 +520,11 @@ def partial_pool_kernel_checks(gen: torch.Generator) -> int:
 
     n_cases = 0
     V, G, L, H = 3000, 8, 7, 300
+    every = ((37, "random"), (2053, "random"), (37, "empty_hot"),
+             (37, "all_masked"))
     for D in (16, 18, 64, 128):
         for storage in ("fp32", "int8"):
-            S_max = 4
+            S_max = 12
             if storage == "int8":
                 cold = torch.randint(-127, 128, (S_max * V, D),
                                      generator=gen, device="cuda",
@@ -498,10 +536,10 @@ def partial_pool_kernel_checks(gen: torch.Generator) -> int:
             # one scale per (shard, row), as pages carry them: duplicates
             # of a row share it, which the gather-once plan relies on
             row_scale = rand((S_max, H), 1e-4, 2e-2)
-            for S in (1, 4):
+            for S in (1, 2, 4, 8, 12):
                 tier = cold[:S * V]
-                for B, kind in ((37, "random"), (2053, "random"),
-                                (37, "empty_hot"), (37, "all_masked")):
+                for B, kind in (every if S in (1, 4) else every[:2]
+                                + every[3:]):
                     N = B * G
                     rows3 = torch.randint(0, H, (B, G, L), generator=gen,
                                           device="cuda", dtype=torch.int32)
@@ -581,6 +619,64 @@ def partial_pool_kernel_checks(gen: torch.Generator) -> int:
                         assert_equal(out, split, f"partial pool -> resume "
                                                  f"== split {tag}")
                         n_cases += 1
+                # +-1e30 (int8: +-127) under every masked entry: row 0 of
+                # each slice (what a non-owner's per-entry gather would
+                # read) and the tier's last row (the dedup sentinel slot's);
+                # no owned entry reads them, and the tiles do not change
+                B = 37
+                rows3 = torch.randint(1, H, (B, G, L), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                shard = torch.randint(-1, S + 1, (B, G, L), generator=gen,
+                                      device="cuda")
+                own4 = shard[None] == torch.arange(
+                    S, device="cuda").view(S, 1, 1, 1)
+                own = own4[0] if S == 1 else own4
+                hot3 = shard == -1
+                s3 = (row_scale[shard.clamp(0, S - 1), rows3]
+                      if storage == "int8" else None)
+                x = torch.randn((B, D), generator=gen, device="cuda")
+                big = tier.clone()
+                edge = torch.cat([torch.arange(S, device="cuda") * V,
+                                  torch.tensor([S * V - 1], device="cuda")])
+                sign = torch.where(rand((edge.numel(), D)) < 0.5, -1.0, 1.0)
+                big[edge] = (sign * 127).to(torch.int8) if storage == "int8" \
+                    else sign * 1e30
+                for weighting in ("01", "general"):
+                    w3 = ((rand((B, G, L)) < 0.8).float()
+                          if weighting == "01" else rand((B, G, L), -2.0, 2.0))
+                    tag = f"D={D} {storage} S={S} +-1e30 w={weighting}"
+                    want = core_sls.fused_partial_pool_dense(
+                        tier, hot, x, rows3, own, hot3, w3, s3)
+                    for dd in (False, True):
+                        got = core_sls.fused_partial_pool_dense(
+                            big, hot, x, rows3, own, hot3, w3, s3, dedup=dd)
+                        for a, z, part in zip(got, want, ("part_c", "part_h")):
+                            assert_equal(a, z, f"{tag} dedup={dd} {part}")
+                    if weighting == "01":
+                        plain = core_sls.fused_partial_pool_dense(
+                            big, hot, x, rows3, own, hot3, w3, s3,
+                            impl="torch")
+                        for a, z, part in zip(plain, want,
+                                              ("part_c", "part_h")):
+                            assert_equal(a, z, f"{tag} plain {part}")
+                    n_cases += 1
+    # the resume alone: batches no block size divides, every D path and
+    # shard count class (S in {1, 2, 4, 8} templated, 3 and 12 the loop)
+    F = G + 1
+    for B in (1, 31, 32, 2053):
+        for D in (16, 18, 64, 128):
+            for S in (1, 2, 3, 4, 8, 12):
+                pc = torch.randn((S, B, F, D), generator=gen, device="cuda")
+                pc[:, :, 0] = 0.0
+                ph = torch.randn((B, F, D), generator=gen, device="cuda")
+                out = ops.fused_resume(pc, ph)
+                feats = shard_sum(pc) + ph
+                tag = f"fused_resume B={B} D={D} S={S}"
+                assert_close(out, ops.fused_resume(pc, ph, impl="torch"),
+                             dot_tol(feats), tag)
+                assert_equal(out, ops.dot_interaction(feats),
+                             f"{tag} == dot_interaction(shard_sum + h)")
+                n_cases += 1
     return n_cases
 
 
@@ -989,82 +1085,91 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
               f"{tag} tp={TP} {fe}: dedup auto != off bitwise")
     print(f"{tag}: tp={TP} setup {setup_s:.1f} s; dedup auto records "
           f"{json.dumps(eng4.plan_stats().get('dedup', {}))}", flush=True)
-    # ---- timing at the serve shapes, 4 shards
+    # ---- timing at the serve shapes: 4 shards, and 1 (pond's fused path)
     b4.state = state4
     eng4.dedup_staging_bytes = BIG_BUDGET
-    R = eng4.cfg.rows_per_shard
+    ij = torch.tril_indices(F, F, -1, device="cuda")
     for B in (batch, big):
         sub = {k: v[:B] for k, v in hb.items()}
-        loc, own4, is_hot, scale = eng4._address(state4, sub["indices"])
         w = sub["weights"]
         x = torch.randn((B, D), device="cuda")
-        cold, hot = state4.cold, state4.hot
-        pp_args = (cold, hot, x, loc, own4, is_hot, w, scale)
-        cp, hp = core_sls.partial_pool_plans(cold.shape[0], loc, own4,
-                                             is_hot, scale)
-        pc, ph = ops.fused_partial_pool(*pp_args)
-        n_e = loc.numel()
-        base = torch.arange(TP, device="cuda").view(TP, 1, 1, 1) * R
-        uc = torch.unique((loc[None] + base)[own4]).numel()
-        uh = torch.unique(loc[is_hot]).numel()
-        tiles = (TP + 1) * B * F * D * 4
-        meta = n_e * (4 + TP + 1 + 4 + 4 * (scale is not None))
-        flops = 2 * n_e * D * 2 + n_e * D * (scale is not None)
-        c_dd, h_dd = dedup_cost(cold, cp), dedup_cost(hot, hp)
-        ij = torch.tril_indices(F, F, -1, device="cuda")
+        for eng, st, n in ((eng4, state4, TP), (eng1, state1, 1)):
+            loc, own, is_hot, scale = eng._address(st, sub["indices"])
+            cold, hot = st.cold, st.hot
+            pp_args = (cold, hot, x, loc, own, is_hot, w, scale)
+            cp, hp = core_sls.partial_pool_plans(cold.shape[0], loc, own,
+                                                 is_hot, scale)
+            pc, ph = ops.fused_partial_pool(*pp_args)
+            n_e = loc.numel()
+            R = eng.cfg.rows_per_shard
+            base = torch.arange(n, device="cuda").view(n, 1, 1, 1) * R
+            uc = torch.unique((loc[None] + base)[own]).numel()
+            uh = torch.unique(loc[is_hot]).numel()
+            tiles = (n + 1) * B * F * D * 4
+            meta = n_e * (4 + n + 1 + 4 + 4 * (scale is not None))
+            flops = 2 * n_e * D * 2 + n_e * D * (scale is not None)
+            c_dd, h_dd = dedup_cost(cold, cp), dedup_cost(hot, hp)
 
-        def lib_resume():
-            f = shard_sum(pc) + ph
-            return torch.bmm(f, f.transpose(1, 2))[:, ij[0], ij[1]]
+            def lib_resume():
+                f = shard_sum(pc) + ph
+                return torch.bmm(f, f.transpose(1, 2))[:, ij[0], ij[1]]
 
-        calls = {
-            "fused_partial_pool": (
-                lambda: ops.fused_partial_pool(*pp_args),
-                lambda: ops.fused_partial_pool(*pp_args, impl="torch"),
-                bound(uc * D * cold.element_size() + uh * D * 4 + meta
-                      + B * D * 4 + tiles, flops), None),
-            "fused_partial_pool_dedup": (
-                lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp, hp,
-                                                     own4, is_hot, w),
-                lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp, hp,
-                                                     own4, is_hot, w,
-                                                     impl="torch"),
-                bound(c_dd["nbytes"] + h_dd["nbytes"]
-                      + n_e * (4 * TP + 4 + TP + 1 + 4) + B * D * 4 + tiles,
-                      2 * n_e * D * 2 + c_dd["dequant_flops"]), None),
-            "fused_resume": (
-                lambda: ops.fused_resume(pc, ph),
-                lambda: ops.fused_resume(pc, ph, impl="torch"),
-                bound(tiles + B * P * 4, 2 * B * F * F * D), lib_resume),
-        }
-        feats = shard_sum(pc) + ph
-        for name, (kfn, pfn, cost, lib) in calls.items():
-            kout, pout = kfn(), pfn()
-            what = f"{name} {tag} tp={TP} batch {B}"
-            if name == "fused_resume":
-                assert_close(kout, pout, dot_tol(feats), what)
-                err = float((kout - pout).abs().max())
-            else:                                   # 0/1 weights: bitwise
-                for a, z, part in zip(kout, pout, ("part_c", "part_h")):
-                    assert_equal(a, z, f"{what} {part}")
-                err = 0.0
-            details.append({"name": name, "arch": cfg.name,
-                            "storage": storage, "batch": B, "n_shards": TP,
-                            "ms": timer(kfn), "plain_ms": timer(pfn),
-                            "library_ms": None if lib is None
-                            else timer(lib), "max_abs_err": err, **cost})
-        # ---- serve steps: pifs at 4 shards, pond at one
-        for mode, bb, st in (("pifs", b4, state4), ("pond", b1, state1)):
-            for fe in ("split", "fused"):
-                steps.append({"arch": cfg.name, "storage": storage,
-                              "n_shards": bb.engine.cfg.n_shards,
-                              "mode": mode, "front_end": fe, "dedup": "off",
-                              "batch": B,
-                              **step_time(bb.step(fe, mode=mode), st, sub)})
+            calls = {
+                "fused_partial_pool": (
+                    lambda: ops.fused_partial_pool(*pp_args),
+                    lambda: ops.fused_partial_pool(*pp_args, impl="torch"),
+                    bound(uc * D * cold.element_size() + uh * D * 4 + meta
+                          + B * D * 4 + tiles, flops), None),
+                "fused_partial_pool_dedup": (
+                    lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp,
+                                                         hp, own, is_hot, w),
+                    lambda: ops.fused_partial_pool_dedup(cold, hot, x, cp,
+                                                         hp, own, is_hot, w,
+                                                         impl="torch"),
+                    bound(c_dd["nbytes"] + h_dd["nbytes"]
+                          + n_e * (4 * n + 4 + n + 1 + 4) + B * D * 4
+                          + tiles, 2 * n_e * D * 2 + c_dd["dequant_flops"]),
+                    None),
+                "fused_resume": (
+                    lambda: ops.fused_resume(pc, ph),
+                    lambda: ops.fused_resume(pc, ph, impl="torch"),
+                    bound(tiles + B * P * 4, 2 * B * F * F * D), lib_resume),
+            }
+            feats = shard_sum(pc) + ph
+            for name, (kfn, pfn, cost, lib) in calls.items():
+                kout, pout = kfn(), pfn()
+                what = f"{name} {tag} tp={n} batch {B}"
+                if name == "fused_resume":
+                    assert_close(kout, pout, dot_tol(feats), what)
+                    err = float((kout - pout).abs().max())
+                else:                               # 0/1 weights: bitwise
+                    for a, z, part in zip(kout, pout, ("part_c", "part_h")):
+                        assert_equal(a, z, f"{what} {part}")
+                    err = 0.0
+                details.append({"name": name, "arch": cfg.name,
+                                "storage": storage, "batch": B,
+                                "n_shards": n, "ms": timer(kfn),
+                                "plain_ms": timer(pfn),
+                                "library_ms": None if lib is None
+                                else timer(lib), "max_abs_err": err, **cost})
+        # ---- serve steps: pifs at 4 shards, pond at one; and the 4-shard
+        # fused step with dedup on (its stage launches)
+        for mode, bb, st, fe, dedup in (
+                ("pifs", b4, state4, "split", "off"),
+                ("pifs", b4, state4, "fused", "off"),
+                ("pond", b1, state1, "split", "off"),
+                ("pond", b1, state1, "fused", "off"),
+                ("pifs", b4, state4, "fused", "on")):
+            steps.append({"arch": cfg.name, "storage": storage,
+                          "n_shards": bb.engine.cfg.n_shards,
+                          "mode": mode, "front_end": fe, "dedup": dedup,
+                          "batch": B,
+                          **step_time(bb.step(fe, mode=mode, dedup=dedup),
+                                      st, sub)})
     if cfg.name == "rmc4":
         maint.append(maintenance_phase(b4, state4, cfg, storage))
     b1.state = state1
-    del b4, state4, tp, pond, pc, ph, cp, hp
+    del b4, state4, tp, pond, pc, ph, cp, hp, calls
     torch.cuda.empty_cache()
 
 
@@ -1160,9 +1265,8 @@ def main() -> None:
     for name, p in paths.items():
         log = p.with_suffix(".log").read_text() if p.with_suffix(
             ".log").exists() else ""
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+        for kernel, regs, spill in ptxas_report(log):
+            print(f"  ptxas {name}: {kernel}: {regs}; {spill}", flush=True)
     print(json.dumps({"kernels_built": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces} for k in build.KERNELS.values()]}),
@@ -1195,7 +1299,8 @@ def main() -> None:
         row, path = pick[k.name]
         d = next(x for x in details if x["name"] == row
                  and x["arch"] == "rmc4" and x["storage"] == "fp32"
-                 and x["batch"] == 2048)
+                 and x["batch"] == 2048
+                 and x.get("n_shards", 1) == (TP if path == "tp" else 1))
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[path][k.name],

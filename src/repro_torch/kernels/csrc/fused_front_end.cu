@@ -25,24 +25,51 @@
 //
 // fused_partial_pool and fused_partial_pool_dedup (below) replace
 // src/repro/kernels/sls.py:fused_partial_pool_pallas and
-// fused_partial_pool_dedup_pallas (emit="tiles"): the same pooling loop
-// with EMIT_TILES set, stopped before the interaction.  Each bag's cold and
-// hot accumulators go to device memory as two (B, F, D) tiles, part_c (row 0
-// zero) and part_h (row 0 = x); fused_resume (dot_interaction.cu) adds
-// them and interacts.  Tensor parallelism runs in one launch: grid row
-// blockIdx.y is cold shard s, which pools the entries it owns from its
-// slice of the cold tier into part_c[s]; the replicated hot tier (and x)
-// is pooled by shard 0 alone, so x is counted once.  Bound: bytes (the
-// gather, as above, plus the tiles written).  The dedup variant stages
-// all shards' unique cold rows with one plan (their rows are disjoint)
-// and the hot rows with another, then reads them through per-shard slots.
+// fused_partial_pool_dedup_pallas (emit="tiles"): the pooling stopped
+// before the interaction, in a kernel of its own (partial_pool_kernel).
+// Each bag's cold and hot accumulators go to device memory as (B, F, D)
+// tiles, part_c[s] per cold shard (row 0 zero) and part_h (row 0 = x);
+// fused_resume (dot_interaction.cu) adds them and interacts.
+//
+// Bound: bytes (the gather, plus the S + 1 tiles written); in practice
+// latency, the chain of dependent metadata -> row round trips that each
+// warp walks.  Design: one walk over each bag's entries for all shards, so
+// a full card walks each entry once, not once per shard.
+// - One team of threads per bag (a lane per 16-byte chunk of D; int8 reads
+//   4-code chunks here), blocks of 64 threads, so that a small batch still
+//   spreads over the SMs.
+// - The team takes its bag's entries in runs of `team`: lane j loads entry
+//   j's metadata (its owner mask over this grid row's shards, weight,
+//   scale, rows or slots) into shared memory, one round trip per run, not
+//   one per entry; then every lane gathers its chunk of the cold and hot
+//   rows of 4 entries at a time and accumulates them in l order.
+// - A shard that owns the entry accumulates its row into its own
+//   accumulator acc_c[s] in registers (the shard-group size NSH is a
+//   template parameter: 1, 2, 4 or 8; more shards take one grid row per
+//   group of 8, the hot tier and x in group 0 alone).  The hot
+//   accumulator runs as in the fused kernel: every entry, f = hit * w.
+// - Below 16 bags per SM (the wrapper's shard_group) each shard takes a
+//   grid row of its own instead: a small batch leaves the card idle, and a
+//   warp's chain of loads is then the time.
+// A shard that does not own an entry skips it, where the plain versions
+// (and masked_sls) add fmaf(0, v, acc) (f = owned * w = +-0): on finite
+// rows the two agree, because f * v is +-0, acc + +-0 == acc, and an
+// accumulator that starts at +0 turns to -0 only by underflow, which ==
+// comparisons treat as +0.  So the tiles equal the plain version's, and
+// partial pool -> resume equals split (chip_smoke.py checks it with
+// +-1e30 rows under every masked entry).
+//
+// The gather-once variant stages both tiers' unique rows in one launch
+// (dedup_stage.cuh, dedup_stage_tiers_kernel: the cold plan's live slots,
+// then the hot plan's), then this kernel reads them through the first
+// owner's cold slot and the hot slot: two launches per call.
 #include <algorithm>
 
 #include "common.cuh"
 #include "dedup_stage.cuh"
 #include "interaction.cuh"
 
-template <typename T, int VEC, bool DEDUP, bool EMIT_TILES>
+template <typename T, int VEC, bool DEDUP>
 __global__ void fused_front_end_kernel(
     const T* __restrict__ cold, const float* __restrict__ hot,
     const float* __restrict__ x, const int32_t* __restrict__ rows,
@@ -50,39 +77,18 @@ __global__ void fused_front_end_kernel(
     const float* __restrict__ w, const float* __restrict__ scales,
     float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
     int team, const int32_t* __restrict__ hslots,
-    const float* __restrict__ cstage, const float* __restrict__ hstage,
-    int64_t cold_stride, float* __restrict__ part_c,
-    float* __restrict__ part_h) {
+    const float* __restrict__ cstage, const float* __restrict__ hstage) {
   extern __shared__ float tile[];
   const int F = G + 1;
   const int lds = D + 1;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * BB;
   const int nb = static_cast<int>(min(static_cast<int64_t>(BB), B - b0));
-  // shard blockIdx.y (EMIT_TILES only): its ownership mask and its cold
-  // tier (its slots, with DEDUP); the hot tier is replicated and pooled by
-  // shard 0 alone.  Without EMIT_TILES both fold to constants, so the
-  // fused kernel's code is the one-shard code.
-  const int sh = EMIT_TILES ? static_cast<int>(blockIdx.y) : 0;
-  const int64_t n_e = static_cast<int64_t>(B) * G * L;
-  const bool with_hot = !EMIT_TILES || sh == 0;
-  owned += sh * n_e;
-  if constexpr (DEDUP) {
-    rows += sh * n_e;
-  } else {
-    cold += sh * cold_stride * D;
-  }
 
-  // feature row 0 of each sample: x (EMIT_TILES: zeros in part_c, x in
-  // part_h)
+  // feature row 0 of each sample: x
   for (int e = threadIdx.x; e < nb * D; e += blockDim.x) {
     const int s = e / D;
     const int d = e - s * D;
-    if constexpr (EMIT_TILES) {
-      part_c[((sh * B + b0 + s) * F) * D + d] = 0.0f;
-      if (with_hot) part_h[((b0 + s) * F) * D + d] = __ldg(x + b0 * D + e);
-    } else {
-      tile[s * F * lds + d] = __ldg(x + b0 * D + e);
-    }
+    tile[s * F * lds + d] = __ldg(x + b0 * D + e);
   }
 
   // rows 1..G: pooled bags, cold and hot accumulated apart
@@ -100,7 +106,7 @@ __global__ void fused_front_end_kernel(
       for (int l = 0; l < L; ++l) {
         const int64_t e = e0 + l;
         const bool own = owned[e] != 0;
-        const bool hit = with_hot && is_hot[e] != 0;
+        const bool hit = is_hot[e] != 0;
         const float fc = entry_factor(true, own, w, e);
         const float fh = entry_factor(true, hit, w, e);
         float vc[VEC], vh[VEC];
@@ -109,51 +115,36 @@ __global__ void fused_front_end_kernel(
           // their tier's (finite) sentinel slot with f = 0
           const int64_t uc = __ldg(rows + e);
           load_row<float, VEC>(cstage + uc * D + c * VEC, vc);
-          if (with_hot) {
-            const int64_t uh = __ldg(hslots + e);
-            load_row<float, VEC>(hstage + uh * D + c * VEC, vh);
-          }
+          const int64_t uh = __ldg(hslots + e);
+          load_row<float, VEC>(hstage + uh * D + c * VEC, vh);
           accumulate<VEC>(acc_c, fc, vc, nullptr);
         } else {
           const int64_t r = __ldg(rows + e);
           load_row<T, VEC>(cold + (own ? r : 0) * D + c * VEC, vc);
-          if (with_hot)
-            load_row<float, VEC>(hot + (hit ? r : 0) * D + c * VEC, vh);
+          load_row<float, VEC>(hot + (hit ? r : 0) * D + c * VEC, vh);
           accumulate<VEC>(acc_c, fc, vc,
                           scales == nullptr ? nullptr : scales + e);
         }
-        if (with_hot) accumulate<VEC>(acc_h, fh, vh, nullptr);
+        accumulate<VEC>(acc_h, fh, vh, nullptr);
       }
-      if constexpr (EMIT_TILES) {
-        const int64_t row = (b0 + s) * F + g + 1;
-        store_row<VEC>(part_c + (sh * B * F + row) * D + c * VEC, acc_c);
-        if (with_hot) store_row<VEC>(part_h + row * D + c * VEC, acc_h);
-      } else {
-        float* dst = tile + (s * F + g + 1) * lds;
+      float* dst = tile + (s * F + g + 1) * lds;
 #pragma unroll
-        for (int k = 0; k < VEC; ++k)
-          dst[c * VEC + k] = __fadd_rn(acc_c[k], acc_h[k]);
-      }
+      for (int k = 0; k < VEC; ++k)
+        dst[c * VEC + k] = __fadd_rn(acc_c[k], acc_h[k]);
     }
   }
-  if constexpr (!EMIT_TILES) {
-    __syncthreads();
-    interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
-  }
+  __syncthreads();
+  interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
 }
 
-// EMIT_TILES: S > 1 runs one grid row (blockIdx.y) per cold-tier shard;
-// cold_stride is the rows of one shard's slice.  Without EMIT_TILES, S == 1.
-template <typename T, int VEC, bool DEDUP = false, bool EMIT_TILES = false>
+template <typename T, int VEC, bool DEDUP = false>
 static int launch(const void* cold, const float* hot, const float* x,
                   const int32_t* rows, const uint8_t* owned,
                   const uint8_t* is_hot, const float* w, const float* scales,
                   float* out, int B, int G, int L, int D, int P, int max_bb,
                   cudaStream_t stream, const int32_t* hslots = nullptr,
                   const float* cstage = nullptr,
-                  const float* hstage = nullptr, int S = 1,
-                  int64_t cold_stride = 0, float* part_c = nullptr,
-                  float* part_h = nullptr) {
+                  const float* hstage = nullptr) {
   const int threads = 256;
   const int team = team_size(D / VEC);
   // A team walks its bags' entries one gather after another, so the
@@ -161,51 +152,270 @@ static int launch(const void* cold, const float* hot, const float* x,
   // give each team one bag (BB * G <= teams), up to the caller's cap.
   const int BB = std::max(1, std::min(max_bb, (threads / team) / G));
   const size_t smem =
-      EMIT_TILES ? 0
-                 : static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
+      static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
   // above 48 KB a block gets dynamic shared memory only after this opt-in;
   // without it the launch is refused
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_front_end_kernel<T, VEC, DEDUP, EMIT_TILES>,
+        fused_front_end_kernel<T, VEC, DEDUP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (B + BB - 1) / BB;
   if (blocks > 0) {
-    fused_front_end_kernel<T, VEC, DEDUP, EMIT_TILES>
-        <<<dim3(blocks, S), threads, smem, stream>>>(
-            static_cast<const T*>(cold), hot, x, rows, owned, is_hot, w,
-            scales, out, B, G, L, D, P, BB, team, hslots, cstage, hstage,
-            cold_stride, part_c, part_h);
+    fused_front_end_kernel<T, VEC, DEDUP><<<blocks, threads, smem, stream>>>(
+        static_cast<const T*>(cold), hot, x, rows, owned, is_hot, w, scales,
+        out, B, G, L, D, P, BB, team, hslots, cstage, hstage);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Stage each tier's unique rows, then the fused kernel through the slots,
 // on one stream.  VEC is the float32 staging chunk (see dedup_stage.cuh);
-// T only types the cold table.  Uc, Uh: the tiers' plan capacities.
-template <typename T, int VEC, bool EMIT_TILES = false>
+// T only types the cold table.  U: the plans' capacity.
+template <typename T, int VEC>
 static int launch_dedup(const void* cold, int64_t Vc, const float* hot,
                         int64_t Vh, const float* x, const int32_t* cuniq,
                         const int32_t* cn, const float* cscales,
                         const int32_t* huniq, const int32_t* hn,
-                        float* cstage, float* hstage, int Uc, int Uh,
+                        float* cstage, float* hstage, int U,
                         const int32_t* cslots, const int32_t* hslots,
                         const uint8_t* owned, const uint8_t* is_hot,
                         const float* w, float* out, int B, int G, int L,
-                        int D, int P, int max_bb, cudaStream_t stream,
-                        int S = 1, float* part_c = nullptr,
-                        float* part_h = nullptr) {
+                        int D, int P, int max_bb, cudaStream_t stream) {
   launch_stage<T, VEC>(static_cast<const T*>(cold), Vc, D, cuniq, cn,
-                       cscales, cstage, Uc, stream);
-  launch_stage<float, VEC>(hot, Vh, D, huniq, hn, nullptr, hstage, Uh,
+                       cscales, cstage, U, stream);
+  launch_stage<float, VEC>(hot, Vh, D, huniq, hn, nullptr, hstage, U,
                            stream);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch<float, VEC, true, EMIT_TILES>(
-      cold, hot, x, cslots, owned, is_hot, w, nullptr, out, B, G, L, D, P,
-      max_bb, stream, hslots, cstage, hstage, S, 0, part_c, part_h);
+  return launch<float, VEC, true>(cold, hot, x, cslots, owned, is_hot, w,
+                                  nullptr, out, B, G, L, D, P, max_bb,
+                                  stream, hslots, cstage, hstage);
+}
+
+// One entry of a team's current run, as the partial pool's row phase reads
+// it: the element offsets of the rows to gather (cold: the first owner's
+// row in its slice or, with DEDUP, its staging slot; hot: hit ? row : 0,
+// or the hot slot), the factors fc = 1 * w (owned) and fh = hit * w, the
+// dequant scale and the owners among this grid row's shards (bit q: shard
+// s0 + q).  32 bytes, read as two 16-byte shared loads.
+struct __align__(16) PoolEntry {
+  int64_t cold;
+  int64_t hot;
+  float fc;
+  float fh;
+  float scale;
+  uint32_t owners;
+};
+
+constexpr int POOL_THREADS = 64;   // partial-pool block size
+constexpr int POOL_U = 4;          // entries whose rows are in flight at once
+
+// The partial pool: NSH shards of grid row blockIdx.y's group (shards
+// s0 = blockIdx.y * NSH .. s0 + ns - 1) in one walk over each bag's
+// entries.  owned (S, B, G, L); rows (B, G, L) rows local to a slice, or
+// with DEDUP the cold slots (S, B, G, L); cold's shard s slice at row
+// s * cold_stride (without DEDUP); scales (int8 only, without DEDUP).  One
+// team of threads per bag, a few bags per block (small blocks, so that a
+// small batch still spreads over the SMs).  The team takes its bag's
+// entries in runs of `team`: lane j reads entry j's metadata into shared
+// memory (one round trip per run, not one per entry), then every lane
+// gathers its chunk of the rows of U entries at a time and accumulates
+// them in l order.  See the header for why skipping a non-owned entry
+// keeps the tiles bitwise.
+template <typename T, int VEC, bool DEDUP, int NSH>
+__global__ void __launch_bounds__(POOL_THREADS) partial_pool_kernel(
+    const T* __restrict__ cold, const float* __restrict__ hot,
+    const float* __restrict__ x, const int32_t* __restrict__ rows,
+    const uint8_t* __restrict__ owned, const uint8_t* __restrict__ is_hot,
+    const float* __restrict__ w, const float* __restrict__ scales, int B,
+    int G, int L, int D, int S, int team,
+    const int32_t* __restrict__ hslots, const float* __restrict__ cstage,
+    const float* __restrict__ hstage, int64_t cold_stride,
+    float* __restrict__ part_c, float* __restrict__ part_h) {
+  __shared__ PoolEntry meta[POOL_THREADS];
+  // 16-float chunks: one entry in flight, so that the registers hold more
+  // bags (the int8 16-code path runs at one or two shards)
+  constexpr int U = VEC >= 16 ? 1 : POOL_U;
+  constexpr bool kScaled = !DEDUP && sizeof(T) == 1;  // int8 rows
+  const int F = G + 1;
+  const int s0 = static_cast<int>(blockIdx.y) * NSH;
+  const int ns = min(NSH, S - s0);
+  const bool with_hot = blockIdx.y == 0;
+  const int64_t n_e = static_cast<int64_t>(B) * G * L;
+  const int64_t tile_c = static_cast<int64_t>(B) * F * D;  // one part_c[s]
+  const int chunks = D / VEC;
+  const int lane = threadIdx.x % team;
+  const int64_t bag =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / team) +
+      threadIdx.x / team;
+  // Every loop bound below is the same for all lanes of a warp (a team
+  // lies inside one warp), so the __syncwarp()s are reached by all.
+  const bool valid = bag < static_cast<int64_t>(B) * G;
+  const int64_t b = bag / G;
+  const int g = static_cast<int>(bag - b * G);
+  const int64_t e0 = bag * L;
+  PoolEntry* tm = meta + (threadIdx.x / team) * team;
+  for (int c0 = 0; c0 < chunks; c0 += team) {
+    const int c = c0 + lane;
+    const bool active = valid && c < chunks;
+    // feature row 0 of sample b, by the team of bag g = 0: zeros in
+    // part_c, x in part_h, written in the first metadata phase so that x's
+    // round trip overlaps the metadata's
+    const bool row0 = active && g == 0;
+    float acc_c[NSH][VEC], acc_h[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      acc_h[k] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < NSH; ++q) acc_c[q][k] = 0.0f;
+    }
+    for (int l0 = 0; l0 < L; l0 += team) {
+      const int n = min(team, L - l0);
+      __syncwarp();
+      float xv[VEC];
+      if (l0 == 0 && row0 && with_hot) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) xv[k] = __ldg(x + b * D + c * VEC + k);
+      }
+      if (valid && lane < n) {
+        const int64_t e = e0 + l0 + lane;
+        uint32_t m = 0;
+#pragma unroll
+        for (int q = 0; q < NSH; ++q)
+          if (q < ns && owned[(s0 + q) * n_e + e] != 0) m |= 1u << q;
+        const bool hit = with_hot && is_hot[e] != 0;
+        const int first = m ? __ffs(m) - 1 : 0;
+        PoolEntry p;
+        p.owners = m;
+        p.fc = entry_factor(true, true, w, e);
+        p.fh = entry_factor(true, hit, w, e);
+        p.scale = kScaled ? __ldg(scales + e) : 1.0f;
+        if constexpr (DEDUP) {
+          // the first owner's slot; slot 0 (always staged) for nobody
+          const int64_t u = m ? __ldg(rows + (s0 + first) * n_e + e) : 0;
+          p.cold = u * D;
+          p.hot = with_hot ? __ldg(hslots + e) * static_cast<int64_t>(D) : 0;
+        } else {
+          // nobody: row 0 of the group's first slice, read and not used
+          const int64_t r = __ldg(rows + e);
+          p.cold = ((s0 + first) * cold_stride + (m ? r : 0)) * D;
+          p.hot = (hit ? r : 0) * D;
+        }
+        tm[lane] = p;
+      }
+      if (l0 == 0 && row0) {
+        float zero[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) zero[k] = 0.0f;
+        const int64_t row = b * F * D + c * VEC;
+#pragma unroll
+        for (int q = 0; q < NSH; ++q)
+          if (q < ns) store_row<VEC>(part_c + (s0 + q) * tile_c + row, zero);
+        if (with_hot) store_row<VEC>(part_h + row, xv);
+      }
+      __syncwarp();
+      if (!active) continue;
+      for (int j0 = 0; j0 < n; j0 += U) {
+        // gather the first owner's cold row and the hot row, U entries in
+        // flight
+        float vc[U][VEC], vh[U][VEC];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + u < n) {
+            const PoolEntry p = tm[j0 + u];
+            if constexpr (DEDUP)
+              load_row<float, VEC>(cstage + p.cold + c * VEC, vc[u]);
+            else
+              load_row<T, VEC>(cold + p.cold + c * VEC, vc[u]);
+            if (with_hot)
+              load_row<float, VEC>((DEDUP ? hstage : hot) + p.hot + c * VEC,
+                                   vh[u]);
+          }
+        }
+        // accumulate in l order: each owner's accumulator, then the hot
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + u < n) {
+            const PoolEntry p = tm[j0 + u];
+            uint32_t m = p.owners;
+            while (m) {
+              const int q = __ffs(m) - 1;
+              if (m != p.owners) {
+                // a further owner (masks need not be disjoint): its row
+                const int64_t e = e0 + l0 + j0 + u;
+                if constexpr (DEDUP) {
+                  const int64_t slot = __ldg(rows + (s0 + q) * n_e + e);
+                  load_row<float, VEC>(cstage + slot * D + c * VEC, vc[u]);
+                } else {
+                  const int64_t r = __ldg(rows + e);
+                  load_row<T, VEC>(
+                      cold + ((s0 + q) * cold_stride + r) * D + c * VEC,
+                      vc[u]);
+                }
+              }
+              float v[VEC];
+#pragma unroll
+              for (int k = 0; k < VEC; ++k)
+                v[k] = kScaled ? __fmul_rn(vc[u][k], p.scale) : vc[u][k];
+              if constexpr (NSH == 1) {
+                accumulate<VEC>(acc_c[0], p.fc, v, nullptr);
+              } else {
+#pragma unroll
+                for (int r = 0; r < NSH; ++r)
+                  if (r == q) accumulate<VEC>(acc_c[r], p.fc, v, nullptr);
+              }
+              m &= m - 1;
+            }
+            if (with_hot) accumulate<VEC>(acc_h, p.fh, vh[u], nullptr);
+          }
+        }
+      }
+    }
+    if (active) {
+      const int64_t row = (b * F + g + 1) * D + c * VEC;
+#pragma unroll
+      for (int q = 0; q < NSH; ++q)
+        if (q < ns) store_row<VEC>(part_c + (s0 + q) * tile_c + row, acc_c[q]);
+      if (with_hot) store_row<VEC>(part_h + row, acc_h);
+    }
+  }
+}
+
+// The partial pool's launch: POOL_THREADS / team bags per block, one grid
+// row per group of nsh shards.  nsh (1, 2, 4 or 8) is the wrapper's choice
+// (sls.py: shard_group).  With DEDUP, rows holds the cold slots and cold
+// is unused.
+template <typename T, int VEC, bool DEDUP>
+static int launch_partial(const void* cold, const float* hot, const float* x,
+                          const int32_t* rows, const uint8_t* owned,
+                          const uint8_t* is_hot, const float* w,
+                          const float* scales, int B, int G, int L, int D,
+                          int S, int nsh, int64_t cold_stride,
+                          cudaStream_t stream, const int32_t* hslots,
+                          const float* cstage, const float* hstage,
+                          float* part_c, float* part_h) {
+  const int team = team_size(D / VEC);
+  const int64_t bags = static_cast<int64_t>(B) * G;
+  const int per_block = POOL_THREADS / team;
+  const dim3 grid(static_cast<unsigned>((bags + per_block - 1) / per_block),
+                  (S + nsh - 1) / nsh);
+  if (grid.x == 0) return static_cast<int>(cudaGetLastError());
+  auto c = static_cast<const T*>(cold);
+#define PARTIAL_POOL(N)                                                     \
+  partial_pool_kernel<T, VEC, DEDUP, N><<<grid, POOL_THREADS, 0, stream>>>(\
+      c, hot, x, rows, owned, is_hot, w, scales, B, G, L, D, S, team,       \
+      hslots, cstage, hstage, cold_stride, part_c, part_h)
+  switch (nsh) {
+    case 1: PARTIAL_POOL(1); break;
+    case 2: PARTIAL_POOL(2); break;
+    case 4: PARTIAL_POOL(4); break;
+    case 8: PARTIAL_POOL(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PARTIAL_POOL
+  return static_cast<int>(cudaGetLastError());
 }
 
 // cold (Vc, D) float32 or int8 (itemsize 4 / 1); hot (Vh, D) float32;
@@ -277,38 +487,42 @@ extern "C" int fused_front_end_dedup(
   if (itemsize == 4) {
     return vec16
         ? launch_dedup<float, 4>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                 cst, hst, U, U, csl, hsl, m, hm, wf, o, B,
+                                 cst, hst, U, csl, hsl, m, hm, wf, o, B,
                                  G, L, D, P, max_bb, s)
         : launch_dedup<float, 1>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                 cst, hst, U, U, csl, hsl, m, hm, wf, o, B,
+                                 cst, hst, U, csl, hsl, m, hm, wf, o, B,
                                  G, L, D, P, max_bb, s);
   }
   if (itemsize == 1) {
     return vec16
         ? launch_dedup<int8_t, 4>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                  cst, hst, U, U, csl, hsl, m, hm, wf, o, B,
+                                  cst, hst, U, csl, hsl, m, hm, wf, o, B,
                                   G, L, D, P, max_bb, s)
         : launch_dedup<int8_t, 1>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                  cst, hst, U, U, csl, hsl, m, hm, wf, o, B,
+                                  cst, hst, U, csl, hsl, m, hm, wf, o, B,
                                   G, L, D, P, max_bb, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The partial pool: the fused kernel with EMIT_TILES, one grid row per shard.
-// cold (S * cold_stride, D) float32 or int8, shard s's slice at row
+// The partial pool, one walk for all shards of a group.  cold
+// (S * cold_stride, D) float32 or int8, shard s's slice at row
 // s * cold_stride; hot (Vh, D) float32; x (B, D) float32; rows, is_hot
 // (B, G, L) int32 / bool, rows local to a slice; owned (S, B, G, L) bool;
-// w, scales (B, G, L) float32 or null; part_c (S, B, G + 1, D) and
-// part_h (B, G + 1, D) float32.  max_bb as for fused_front_end.
-extern "C" int fused_partial_pool(const void* cold, int itemsize, int vec16,
-                                  int64_t cold_stride, int S,
+// w (B, G, L) float32 or null; scales (B, G, L) float32, given exactly
+// for an int8 cold tier; part_c (S, B, G + 1, D) and part_h
+// (B, G + 1, D) float32.  vec: row elements per lane (1; 4, a
+// 16-byte float32 chunk or 4 int8 codes; 16 int8 codes), nsh: shards per
+// grid row (1, 2, 4 or 8) -- both the wrapper's choice (sls.py: pool_vec,
+// shard_group).
+extern "C" int fused_partial_pool(const void* cold, int itemsize, int vec,
+                                  int64_t cold_stride, int S, int nsh,
                                   const void* hot, const void* x,
                                   const void* rows, const void* owned,
                                   const void* is_hot, const void* w,
                                   const void* scales, void* part_c,
                                   void* part_h, int B, int G, int L, int D,
-                                  int max_bb, void* stream) {
+                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
@@ -319,44 +533,55 @@ extern "C" int fused_partial_pool(const void* cold, int itemsize, int vec16,
   auto sc = static_cast<const float*>(scales);
   auto pc = static_cast<float*>(part_c);
   auto ph = static_cast<float*>(part_h);
-  if (itemsize == 4) {
-    return vec16
-        ? launch<float, 4, false, true>(cold, h, xf, r, m, hm, wf, sc,
-                                        nullptr, B, G, L, D, 0, max_bb, s,
-                                        nullptr, nullptr, nullptr, S,
-                                        cold_stride, pc, ph)
-        : launch<float, 1, false, true>(cold, h, xf, r, m, hm, wf, sc,
-                                        nullptr, B, G, L, D, 0, max_bb, s,
-                                        nullptr, nullptr, nullptr, S,
-                                        cold_stride, pc, ph);
-  }
-  if (itemsize == 1) {
-    return vec16
-        ? launch<int8_t, 16, false, true>(cold, h, xf, r, m, hm, wf, sc,
-                                          nullptr, B, G, L, D, 0, max_bb, s,
-                                          nullptr, nullptr, nullptr, S,
-                                          cold_stride, pc, ph)
-        : launch<int8_t, 1, false, true>(cold, h, xf, r, m, hm, wf, sc,
-                                         nullptr, B, G, L, D, 0, max_bb, s,
-                                         nullptr, nullptr, nullptr, S,
-                                         cold_stride, pc, ph);
-  }
+#define PARTIAL(T, V)                                                       \
+  launch_partial<T, V, false>(cold, h, xf, r, m, hm, wf, sc, B, G, L, D, S, \
+                              nsh, cold_stride, s, nullptr, nullptr,        \
+                              nullptr, pc, ph)
+  if (itemsize == 4 && vec == 4) return PARTIAL(float, 4);
+  if (itemsize == 4 && vec == 1) return PARTIAL(float, 1);
+  if (itemsize == 1 && vec == 16) return PARTIAL(int8_t, 16);
+  if (itemsize == 1 && vec == 4) return PARTIAL(int8_t, 4);
+  if (itemsize == 1 && vec == 1) return PARTIAL(int8_t, 1);
+#undef PARTIAL
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Stage both tiers in one launch, then the partial pool through the slots:
+// two launches on one stream.  VEC is the float32 staging chunk; T only
+// types the cold table.
+template <typename T, int VEC>
+static int launch_partial_dedup(
+    const void* cold, int64_t Vc, const float* hot, int64_t Vh,
+    const float* x, const int32_t* cuniq, const int32_t* cn,
+    const float* cscales, const int32_t* huniq, const int32_t* hn,
+    float* cstage, float* hstage, int Uc, int Uh, const int32_t* cslots,
+    const int32_t* hslots, const uint8_t* owned, const uint8_t* is_hot,
+    const float* w, float* part_c, float* part_h, int B, int G, int L, int D,
+    int S, int nsh, cudaStream_t stream) {
+  launch_stage_tiers<T, VEC>(static_cast<const T*>(cold), Vc, cuniq, cn,
+                             cscales, cstage, Uc, hot, Vh, huniq, hn, hstage,
+                             Uh, D, stream);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_partial<float, VEC, true>(
+      nullptr, hot, x, cslots, owned, is_hot, w, nullptr, B, G, L, D, S, nsh,
+      0, stream, hslots, cstage, hstage, part_c, part_h);
 }
 
 // The gather-once partial pool: one cold plan over all S shards (c_uniq
 // (Uc,) rows of the whole cold tier (Vc, D), c_slots and owned
 // (S, B, G, L)), one hot plan (h_uniq (Uh,), h_slots (B, G, L)); the
-// stagings (Uc, D) and (Uh, D) float32 scratch; then the partial pool
-// with DEDUP through the slots.  Outputs as fused_partial_pool.
+// stagings (Uc, D) and (Uh, D) float32 scratch, filled by one stage
+// launch; then the partial pool with DEDUP through the slots.  Outputs
+// and nsh as fused_partial_pool.
 extern "C" int fused_partial_pool_dedup(
-    const void* cold, int itemsize, int64_t Vc, int vec16, int S,
+    const void* cold, int itemsize, int64_t Vc, int vec16, int S, int nsh,
     const void* hot, int64_t Vh, const void* x, const void* c_uniq,
     const void* c_n, const void* c_scales, const void* h_uniq,
     const void* h_n, void* c_stage, void* h_stage, int Uc, int Uh,
     const void* c_slots, const void* h_slots, const void* owned,
     const void* is_hot, const void* w, void* part_c, void* part_h, int B,
-    int G, int L, int D, int max_bb, void* stream) {
+    int G, int L, int D, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
@@ -376,25 +601,23 @@ extern "C" int fused_partial_pool_dedup(
   auto ph = static_cast<float*>(part_h);
   if (itemsize == 4) {
     return vec16
-        ? launch_dedup<float, 4, true>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
-                                       hn, cst, hst, Uc, Uh, csl, hsl, m, hm,
-                                       wf, nullptr, B, G, L, D, 0, max_bb, s,
-                                       S, pc, ph)
-        : launch_dedup<float, 1, true>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
-                                       hn, cst, hst, Uc, Uh, csl, hsl, m, hm,
-                                       wf, nullptr, B, G, L, D, 0, max_bb, s,
-                                       S, pc, ph);
+        ? launch_partial_dedup<float, 4>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
+                                         hn, cst, hst, Uc, Uh, csl, hsl, m,
+                                         hm, wf, pc, ph, B, G, L, D, S, nsh, s)
+        : launch_partial_dedup<float, 1>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
+                                         hn, cst, hst, Uc, Uh, csl, hsl, m,
+                                         hm, wf, pc, ph, B, G, L, D, S, nsh, s);
   }
   if (itemsize == 1) {
     return vec16
-        ? launch_dedup<int8_t, 4, true>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
-                                        hn, cst, hst, Uc, Uh, csl, hsl, m,
-                                        hm, wf, nullptr, B, G, L, D, 0,
-                                        max_bb, s, S, pc, ph)
-        : launch_dedup<int8_t, 1, true>(cold, Vc, h, Vh, xf, cu, cn, cs, hu,
-                                        hn, cst, hst, Uc, Uh, csl, hsl, m,
-                                        hm, wf, nullptr, B, G, L, D, 0,
-                                        max_bb, s, S, pc, ph);
+        ? launch_partial_dedup<int8_t, 4>(cold, Vc, h, Vh, xf, cu, cn, cs,
+                                          hu, hn, cst, hst, Uc, Uh, csl, hsl,
+                                          m, hm, wf, pc, ph, B, G, L, D, S,
+                                          nsh, s)
+        : launch_partial_dedup<int8_t, 1>(cold, Vc, h, Vh, xf, cu, cn, cs,
+                                          hu, hn, cst, hst, Uc, Uh, csl, hsl,
+                                          m, hm, wf, pc, ph, B, G, L, D, S,
+                                          nsh, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,9 +9,15 @@ dots in a fixed order over D, with the device function the fused front
 end shares.  Timings on the card are in ``PERF.md``.
 
 ``fused_resume`` (same source) replaces ``repro/kernels/sls.py:
-fused_resume_pallas``: the tile it loads is the partial-pool tiles' sum,
-the S cold shards' tiles in shard order plus the hot tile, then the same
-device function.  Bound by bytes ((S + 1) tiles in, (B, P) out).
+fused_resume_pallas``: the tile it interacts is the partial-pool tiles'
+sum, the S cold shards' tiles in shard order plus the hot tile.  Bound by
+bytes ((S + 1) tiles in, (B, P) out).  Its launch is sized to the bytes,
+not to the pairs (:func:`resume_shape`): blocks of 128 or 256 threads read
+each tile's contiguous run of NS samples as float4, all S + 1 loads of an
+element in flight before the adds, into a shared tile whose row stride
+keeps float4 alignment; then each thread reduces whole dots with the same
+fmaf sequence as ``dot_interaction``, so partial pool -> resume equals
+split bit for bit.
 """
 from __future__ import annotations
 
@@ -39,6 +45,35 @@ def samples_per_block(B: int, F: int, D: int, P: int, n_sm: int) -> int:
     if fit < 1:
         raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
     return max(1, min(max(1, 256 // P), -(-B // n_sm), fit))
+
+
+RESUME_BLOCKS_PER_SM = 4   # resume blocks per SM the batch is spread over
+RESUME_MAX_NS = 8          # samples per resume block, at most
+
+
+def resume_shape(B: int, F: int, D: int, n_sm: int, vec4: bool = True):
+    """Launch shape of the resume kernel: (NS samples per block, threads,
+    shared row stride lds in floats).
+
+    NS spreads the batch over ``RESUME_BLOCKS_PER_SM`` blocks per SM (so a
+    small batch still gets one block per sample), at most
+    ``RESUME_MAX_NS`` and a tile that fits shared memory.  Threads follow
+    the tile's bytes, not its pairs: 256 when the tile holds at least 256
+    float4 elements, else 128.  With ``vec4`` the row stride is
+    4 * (the least odd number > D / 4), 16-byte aligned rows whose float4
+    reads at one d fall in distinct bank groups; else D + 1."""
+    if vec4:
+        q = D // 4 + 1
+        lds = 4 * (q if q % 2 else q + 1)
+    else:
+        lds = D + 1
+    fit = SMEM_MAX // (F * lds * 4)
+    if fit < 1:
+        raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
+    NS = max(1, min(RESUME_MAX_NS, -(-B // (RESUME_BLOCKS_PER_SM * n_sm)),
+                    fit))
+    threads = 256 if NS * F * D >= 4 * 256 else 128
+    return NS, threads, lds
 
 
 def dot_interaction(feats: torch.Tensor,
@@ -94,11 +129,14 @@ def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor
         return out
     n_sm = torch.cuda.get_device_properties(
         part_h.device).multi_processor_count
-    NS = samples_per_block(B, F, D, P, n_sm)
+    vec4 = D % 4 == 0 and part_c.data_ptr() % 16 == 0 \
+        and part_h.data_ptr() % 16 == 0
+    NS, threads, lds = resume_shape(B, F, D, n_sm, vec4)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    fn = build.entry("fused_resume", [P_, P_, P_, I_, I_, I_, I_, I_, I_, P_])
+    fn = build.entry("fused_resume", [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_,
+                                      I_, I_, P_])
     err = fn(part_c.data_ptr(), part_h.data_ptr(), out.data_ptr(), B, F, D,
-             P, S, NS, _stream(part_h))
+             P, S, NS, threads, lds, int(vec4), _stream(part_h))
     build.check("fused_resume", err)
     build.KERNELS["fused_resume"].launches += 1
     return out

@@ -18,15 +18,20 @@
   staging buffer the wrapper allocates, then the accumulate above reads it
   through the plan's slots.  Bound by bytes (each distinct row once, plus
   the staging round trip, which L2 holds while it fits).
-* ``fused_partial_pool`` and ``fused_partial_pool_dedup`` -- the fused
-  kernel (and its gather-once variant) stopped before the interaction, in
+* ``fused_partial_pool`` and ``fused_partial_pool_dedup`` -- the pooling
+  stopped before the interaction, in a kernel of its own in
   ``csrc/fused_front_end.cu``; they replace
   ``repro/kernels/sls.py:fused_partial_pool_pallas`` and
   ``fused_partial_pool_dedup_pallas``.  They write the two (B, F, D)
   partial feature tiles ``part_c`` (per cold shard, row 0 zero) and
   ``part_h`` (row 0 = x) that ``fused_resume`` (``kernels/interaction.py``)
-  finishes.  All S cold shards pool in one launch (one grid row each).
-  Bound by bytes: the gather plus the tiles written.
+  finishes.  Bound by bytes (the gather plus the tiles written), in
+  practice by the latency of each warp's chain of metadata -> row loads:
+  so a thread team walks each bag's entries once for all S shards (up to
+  8 per grid row; one shard per row at small batch, :func:`shard_group`),
+  each shard accumulating the entries it owns in registers.  The
+  gather-once variant stages both tiers in one launch, then accumulates:
+  two launches.
 
 These functions take CUDA tensors only and launch the kernel or raise.
 ``kernels/ops.py`` picks between them and the plain versions in
@@ -356,6 +361,46 @@ def check_fused_partial_pool(cold, hot, x, rows, owned, is_hot, weights,
                          "an int8 cold tier takes them")
 
 
+SHARD_GROUP_MAX = 8        # cold shards one partial-pool grid row walks
+WALK_MIN_BAGS_PER_SM = 16  # bags per SM from which all shards share a walk
+
+
+def shard_group(S: int, bags: int = 0, n_sm: int = 1):
+    """(shards per grid row, grid rows) of the partial pool for S cold
+    shards over ``bags`` bags.
+
+    A full card (at least ``WALK_MIN_BAGS_PER_SM`` bags per SM) walks each
+    bag's entries once for all shards: the least of 1, 2, 4, 8 that holds
+    S (a template parameter of the kernel, so each shard's accumulator
+    stays in registers), more than 8 shards in groups of 8, one grid row
+    each.  With fewer bags the card is mostly idle and a warp's chain of
+    loads is the time, so each shard takes a grid row of its own (the
+    walk's work spread over S times the warps)."""
+    if S < 1:
+        raise ValueError(f"the partial pool needs S >= 1 shards, got {S}")
+    if bags < WALK_MIN_BAGS_PER_SM * n_sm:
+        return 1, S
+    nsh = 1
+    while nsh < min(S, SHARD_GROUP_MAX):
+        nsh *= 2
+    return nsh, -(-S // nsh)
+
+
+def pool_vec(D: int, itemsize: int, aligned: bool, nsh: int,
+             bags: int, n_sm: int) -> int:
+    """Row elements per lane of the partial pool: 4 (a 16-byte float32
+    chunk, or 4 int8 codes) when rows are 16-byte aligned, else 1.  int8
+    takes 16 codes (16 bytes) when a grid row walks at most 2 shards over a
+    full card: fewer lanes per bag put more bags in flight, and at most 2
+    shards' 16-float accumulators fit the registers."""
+    if not aligned:
+        return 1
+    if (itemsize == 1 and nsh <= 2
+            and bags >= WALK_MIN_BAGS_PER_SM * n_sm):
+        return 16
+    return 4
+
+
 def _tiles_out(S: int, B: int, F: int, D: int, dev):
     return (torch.empty((S, B, F, D), dtype=torch.float32, device=dev),
             torch.empty((B, F, D), dtype=torch.float32, device=dev))
@@ -366,8 +411,8 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
                        owned: torch.Tensor, is_hot: torch.Tensor,
                        weights: Optional[torch.Tensor] = None,
                        scales: Optional[torch.Tensor] = None):
-    """Two-tier masked SLS into partial tiles, one launch for all S
-    shards: (B, G, L) entries, ``owned`` (S, B, G, L) and x (B, D) ->
+    """Two-tier masked SLS into partial tiles, one launch and one walk
+    over the entries for all S shards: (B, G, L) entries, ``owned`` (S, B, G, L) and x (B, D) ->
     ``part_c`` (S, B, F, D), ``part_h`` (B, F, D) on the card (plain
     version: ``ref.fused_partial_pool_ref``)."""
     check_fused_partial_pool(cold, hot, x, rows, owned, is_hot, weights,
@@ -385,16 +430,18 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
         raise ValueError("fused_partial_pool needs G, L >= 1 (core/sls.py "
                          "answers empty bags itself, as the reference does)")
     n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
-    max_bb = fused_block(B, F, D, n_sm)
+    nsh, _ = shard_group(S, B * G, n_sm)
+    vec = pool_vec(D, cold.element_size(),
+                   bool(_vec16(D, cold.element_size(), cold)
+                        & _vec16(D, 4, hot)), nsh, B * G, n_sm)
     fn = build.entry("fused_partial_pool",
-                     [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _I, _I, _P])
-    err = fn(cold.data_ptr(), cold.element_size(),
-             _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot),
-             cold.shape[0] // S, S, hot.data_ptr(), x.data_ptr(),
+                     [_P, _I, _I, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _P])
+    err = fn(cold.data_ptr(), cold.element_size(), vec,
+             cold.shape[0] // S, S, nsh, hot.data_ptr(), x.data_ptr(),
              rows.data_ptr(), owned.data_ptr(), is_hot.data_ptr(),
              _ptr(weights), _ptr(scales), part_c.data_ptr(),
-             part_h.data_ptr(), B, G, L, D, max_bb, _stream(cold))
+             part_h.data_ptr(), B, G, L, D, _stream(cold))
     build.check("fused_partial_pool", err)
     build.KERNELS["fused_partial_pool"].launches += 1
     return part_c, part_h
@@ -427,9 +474,9 @@ def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
                              is_hot: torch.Tensor,
                              weights: Optional[torch.Tensor] = None,
                              c_scales: Optional[torch.Tensor] = None):
-    """Gather-once partial pool on the card: both tiers' staging, then the
-    partial pool through the slots -> (``part_c`` (S, B, F, D),
-    ``part_h`` (B, F, D)) (plain version:
+    """Gather-once partial pool on the card: both tiers' staging in one
+    launch, then the partial pool through the slots -> (``part_c``
+    (S, B, F, D), ``part_h`` (B, F, D)) (plain version:
     ``ref.fused_partial_pool_dedup_ref``)."""
     check_fused_partial_pool_dedup(cold, hot, x, c_unique, c_slots, c_n,
                                    h_unique, h_slots, h_n, owned, is_hot,
@@ -451,19 +498,19 @@ def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
     c_stage = torch.empty((Uc, D), dtype=torch.float32, device=cold.device)
     h_stage = torch.empty((Uh, D), dtype=torch.float32, device=cold.device)
     n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
-    max_bb = fused_block(B, F, D, n_sm)
+    nsh, _ = shard_group(S, B * G, n_sm)
     fn = build.entry("fused_partial_pool_dedup",
-                     [_P, _I, _I64, _I, _I, _P, _I64, _P, _P, _P, _P, _P,
+                     [_P, _I, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P, _P,
                       _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _P])
+                      _I, _I, _P])
     err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0],
              _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot), S,
-             hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
+             nsh, hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
              c_n.data_ptr(), _ptr(c_scales), h_unique.data_ptr(),
              h_n.data_ptr(), c_stage.data_ptr(), h_stage.data_ptr(), Uc, Uh,
              c_slots.data_ptr(), h_slots.data_ptr(), owned.data_ptr(),
              is_hot.data_ptr(), _ptr(weights), part_c.data_ptr(),
-             part_h.data_ptr(), B, G, L, D, max_bb, _stream(cold))
+             part_h.data_ptr(), B, G, L, D, _stream(cold))
     build.check("fused_partial_pool_dedup", err)
     build.KERNELS["fused_partial_pool_dedup"].launches += 1
     return part_c, part_h

@@ -14,6 +14,8 @@ versions).  With general weights each of the L steps may round once more:
 resume's dots reduce over D in different orders (XLA dot vs torch.bmm):
 |diff| <= 2 * D * 2^-23 * sum_d |x_i[d] * x_j[d]|.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -336,40 +338,41 @@ def test_registry_lists_every_tpu_kernel():
 def test_cuda_partial_pool_and_resume_match_plain_on_the_card():
     """Rows 7-9 on the card: the kernels against their plain versions
     (bitwise at 0/1 weights), the gather-once tiles against the per-entry
-    tiles and the 4-shard composition against split (bitwise, every
-    weight)."""
+    tiles and the S-shard composition against split (bitwise, every
+    weight), at S = 1, 2, 4, 8 and 12 (more than 8 shards: grid rows of
+    8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    for storage in ("fp32", "int8"):
-        for weighting in ("01", "general"):
-            S, B, G, L, V, D = 4, 37, 8, 7, 500, 64
-            args = tuple(None if a is None else torch.as_tensor(a, device=dev)
-                         for a in _inputs(9, B, G, L, V, D, storage,
-                                          weighting, S=S))
-            launches = build.KERNELS["fused_partial_pool"].launches
-            pc, ph = core_sls.fused_partial_pool_dense(*args)
-            assert build.KERNELS["fused_partial_pool"].launches == \
-                launches + 1
-            qc, qh = core_sls.fused_partial_pool_dense(*args, impl="torch")
-            dc, dh = core_sls.fused_partial_pool_dense(*args, dedup=True)
-            assert torch.equal(dc, pc) and torch.equal(dh, ph)
-            if weighting == "01":
-                assert torch.equal(pc, qc) and torch.equal(ph, qh)
-            out = core_sls.fused_resume_dense(pc, ph)
-            N = B * G
-            cold_p = core_sls.masked_partial_sls_dense(
-                args[0], args[3].reshape(N, L), args[4].reshape(S, N, L),
-                args[6].reshape(N, L),
-                scales=None if args[7] is None else args[7].reshape(N, L))
-            hot_p = core_sls.masked_partial_sls_dense(
-                args[1], args[3].reshape(N, L), args[5].reshape(N, L),
-                args[6].reshape(N, L))
-            split = ops.dot_interaction(torch.cat(
-                [args[2][:, None],
-                 (ref.shard_sum(cold_p) + hot_p).reshape(B, G, D)], 1))
-            assert torch.equal(out, split)
-            plain = core_sls.fused_resume_dense(pc, ph, impl="torch")
-            feats = (ref.shard_sum(pc) + ph).cpu().numpy()
-            _assert_within(out.cpu().numpy(), plain.cpu().numpy(),
-                           _dot_bound(feats))
+    for storage, weighting, S in itertools.product(
+            ("fp32", "int8"), ("01", "general"), (1, 2, 4, 8, 12)):
+        B, G, L, V, D = 37, 8, 7, 500, 64
+        args = tuple(None if a is None else torch.as_tensor(a, device=dev)
+                     for a in _inputs(9, B, G, L, V, D, storage,
+                                      weighting, S=S))
+        launches = build.KERNELS["fused_partial_pool"].launches
+        pc, ph = core_sls.fused_partial_pool_dense(*args)
+        assert build.KERNELS["fused_partial_pool"].launches == \
+            launches + 1
+        qc, qh = core_sls.fused_partial_pool_dense(*args, impl="torch")
+        dc, dh = core_sls.fused_partial_pool_dense(*args, dedup=True)
+        assert torch.equal(dc, pc) and torch.equal(dh, ph)
+        if weighting == "01":
+            assert torch.equal(pc, qc) and torch.equal(ph, qh)
+        out = core_sls.fused_resume_dense(pc, ph)
+        N = B * G
+        cold_p = core_sls.masked_partial_sls_dense(
+            args[0], args[3].reshape(N, L), args[4].reshape(S, N, L),
+            args[6].reshape(N, L),
+            scales=None if args[7] is None else args[7].reshape(N, L))
+        hot_p = core_sls.masked_partial_sls_dense(
+            args[1], args[3].reshape(N, L), args[5].reshape(N, L),
+            args[6].reshape(N, L))
+        split = ops.dot_interaction(torch.cat(
+            [args[2][:, None],
+             (ref.shard_sum(cold_p) + hot_p).reshape(B, G, D)], 1))
+        assert torch.equal(out, split)
+        plain = core_sls.fused_resume_dense(pc, ph, impl="torch")
+        feats = (ref.shard_sum(pc) + ph).cpu().numpy()
+        _assert_within(out.cpu().numpy(), plain.cpu().numpy(),
+                       _dot_bound(feats))
