@@ -11,7 +11,10 @@
    (bitwise) and general weights (tolerance below), L = 7, batches that
    no block size divides, and an empty hot tier -- and each gather-once
    (dedup) kernel against the kernel it varies, bitwise for every weight,
-   on random, all-duplicate, all-unique and all-masked batches; the
+   on random, all-duplicate, all-unique and all-masked batches, at
+   (B, G, L) that no block divides evenly, and with
+   rows of +-1e30 (int8: +-127 under a scale of 1e28) wherever a masked
+   entry could read; the
    partial pools (1, 2, 4, 8 and 12 cold shards in one launch; above 8
    the grid rows of 8 shards) and the resume kernel against their plain
    versions, the gather-once partial pool against the per-entry one
@@ -58,9 +61,11 @@
    and the library call where one exists, beside its bound
    max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) from this run's inputs
    (each distinct row counted once) -- the partial pools and the resume
-   at 4 shards and at 1 (pond's fused path) --, times ``dedup_plan``, and
-   times the serve steps at batch 32 and 2048 with dedup off and on, at 4
-   shards (fused also with dedup on) and in pond (host clock to a
+   at 4 shards and at 1 (pond's fused path), ``masked_sls`` and
+   ``masked_sls_dedup`` also at 4 shards (the split path's stacked
+   bags) --, times ``dedup_plan``, and times the serve steps at batch 32
+   and 2048 with dedup off and on, at 4 shards (split and fused also with
+   dedup on) and in pond (host clock to a
    synchronize), with the device's busy time and operations in them from
    ``torch.profiler``.
 
@@ -496,6 +501,85 @@ def dedup_kernel_checks(gen: torch.Generator) -> int:
                             weighting == "general"),
                             f"fused_front_end_dedup vs plain {tag}")
                         n_cases += 1
+    return n_cases + dedup_edge_checks(gen)
+
+
+def dedup_edge_checks(gen: torch.Generator) -> int:
+    """The gather-once kernels read rows through the plan and skip masked
+    entries, in launches shaped by the batch (``sls_dedup_shape``,
+    ``front_end_dedup_shape``).
+    Held bitwise against the per-entry kernels, for every weight:
+    - at (B, G, L) whose bags no block divides evenly, L above a team's
+      run (two metadata runs) and G above a CTA's teams;
+    - with rows of +-1e30 (int8: +-127 under a masked entry's scale of
+      1e28) wherever a masked entry could read -- row 0 (the per-entry
+      kernels' row) and the last row (the sentinel slot's) of each table --
+      on random and all-masked batches: the result equals the per-entry
+      kernel on the unmodified tables."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import ops
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n_cases = 0
+    V, H = 3000, 700
+    shapes = ((1, 1, 3), (3, 5, 7), (32, 8, 8), (5, 26, 4), (37, 3, 33),
+              (131, 8, 8))
+    for D in (18, 64, 128):
+        for storage in ("fp32", "int8"):
+            if storage == "int8":
+                table = torch.randint(-127, 128, (V, D), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+            else:
+                table = torch.randn((V, D), generator=gen, device="cuda")
+            hot = torch.randn((H, D), generator=gen, device="cuda")
+            row_scale = rand((V,), 1e-4, 2e-2)
+            edge_c = torch.tensor([0, V - 1], device="cuda")
+            edge_h = torch.tensor([0, H - 1], device="cuda")
+            big = table.clone()
+            sign = torch.where(rand((2, D)) < 0.5, -1.0, 1.0)
+            big[edge_c] = ((sign * 127).to(torch.int8) if storage == "int8"
+                           else sign * 1e30)
+            big_hot = hot.clone()
+            big_hot[edge_h] = torch.where(rand((2, D)) < 0.5, -1e30, 1e30)
+            cases = [(B, G, L, kind) for B, G, L in shapes
+                     for kind in ("random",)] + [(37, 8, 8, "all_masked")]
+            for B, G, L, kind in cases:
+                N = B * G
+                # owned and hot rows avoid the tables' first and last rows
+                rows3 = (rand((B, G, L)) ** 3 * (H - 2)).to(torch.int32) + 1
+                own3 = rand((B, G, L)) < 0.6
+                hot3 = ~own3 & (rand((B, G, L)) < 0.7)
+                if kind == "all_masked":
+                    own3 = torch.zeros_like(own3)
+                    hot3 = torch.zeros_like(own3)
+                s3 = (torch.where(own3, row_scale[rows3], 1e28)
+                      if storage == "int8" else None)
+                x = torch.randn((B, D), generator=gen, device="cuda")
+                flat, own2 = rows3.reshape(N, L), own3.reshape(N, L)
+                s2 = None if s3 is None else s3.reshape(N, L)
+                plan = core_sls.dedup_plan(flat, own2, s2)
+                for weighting in ("01", "general"):
+                    w3 = ((rand((B, G, L)) < 0.8).float()
+                          if weighting == "01" else rand((B, G, L), -2.0, 2.0))
+                    w2 = w3.reshape(N, L)
+                    tag = (f"D={D} {storage} B={B} G={G} L={L} {kind} "
+                           f"w={weighting}")
+                    want = ops.masked_sls(table, flat, own2, w2, s2)
+                    for t, what in ((table, ""), (big, " +-1e30")):
+                        assert_equal(ops.masked_sls_dedup(t, plan, own2, w2),
+                                     want, f"masked_sls_dedup == masked_sls "
+                                           f"{tag}{what}")
+                    fwant = core_sls.fused_front_end_dense(
+                        table, hot, x, rows3, own3, hot3, w3, s3)
+                    for (t, h), what in (((table, hot), ""),
+                                         ((big, big_hot), " +-1e30")):
+                        assert_equal(core_sls.fused_front_end_dense(
+                            t, h, x, rows3, own3, hot3, w3, s3, dedup=True),
+                            fwant, f"fused_front_end_dedup == fused "
+                                   f"{tag}{what}")
+                    n_cases += 1
     return n_cases
 
 
@@ -1135,13 +1219,42 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
                     lambda: ops.fused_resume(pc, ph, impl="torch"),
                     bound(tiles + B * P * 4, 2 * B * F * F * D), lib_resume),
             }
+            if n == TP:
+                # the 4-shard split path's SLS: the S shards as S stacked
+                # batches of bags over the whole tier, one dedup plan
+                S, N = n, B * G
+                rows = core_sls._stacked_rows(loc.reshape(N, L), S,
+                                              cold.shape[0] // S
+                                              ).reshape(S * N, L)
+                own2 = own.reshape(S * N, L)
+                w2 = w.reshape(N, L).repeat(S, 1)
+                s2 = (None if scale is None
+                      else scale.reshape(N, L).repeat(S, 1))
+                sp = core_sls.dedup_plan(rows, own2, s2)
+                s_dd = dedup_cost(cold, sp)
+                calls["masked_sls/cold"] = (
+                    lambda: ops.masked_sls(cold, rows, own2, w2, s2),
+                    lambda: ops.masked_sls(cold, rows, own2, w2, s2,
+                                           impl="torch"),
+                    sls_cost(cold, rows, own2, w2, s2), None)
+                calls["masked_sls_dedup/cold"] = (
+                    lambda: ops.masked_sls_dedup(cold, sp, own2, w2),
+                    lambda: ops.masked_sls_dedup(cold, sp, own2, w2,
+                                                 impl="torch"),
+                    bound(s_dd["nbytes"] + S * n_e * 9 + S * N * D * 4,
+                          S * n_e * D * 2 + s_dd["dequant_flops"]), None)
             feats = shard_sum(pc) + ph
+            outs = {}
             for name, (kfn, pfn, cost, lib) in calls.items():
                 kout, pout = kfn(), pfn()
+                outs[name] = kout
                 what = f"{name} {tag} tp={n} batch {B}"
                 if name == "fused_resume":
                     assert_close(kout, pout, dot_tol(feats), what)
                     err = float((kout - pout).abs().max())
+                elif name.startswith("masked_sls"):    # 0/1 weights
+                    assert_equal(kout, pout, what)
+                    err = 0.0
                 else:                               # 0/1 weights: bitwise
                     for a, z, part in zip(kout, pout, ("part_c", "part_h")):
                         assert_equal(a, z, f"{what} {part}")
@@ -1152,13 +1265,19 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
                                 "plain_ms": timer(pfn),
                                 "library_ms": None if lib is None
                                 else timer(lib), "max_abs_err": err, **cost})
+            if n == TP:
+                assert_equal(outs["masked_sls_dedup/cold"],
+                             outs["masked_sls/cold"],
+                             f"masked_sls_dedup == masked_sls {tag} tp={n} "
+                             f"batch {B}")
         # ---- serve steps: pifs at 4 shards, pond at one; and the 4-shard
-        # fused step with dedup on (its stage launches)
+        # steps with dedup on (the gather-once kernels' launches)
         for mode, bb, st, fe, dedup in (
                 ("pifs", b4, state4, "split", "off"),
                 ("pifs", b4, state4, "fused", "off"),
                 ("pond", b1, state1, "split", "off"),
                 ("pond", b1, state1, "fused", "off"),
+                ("pifs", b4, state4, "split", "on"),
                 ("pifs", b4, state4, "fused", "on")):
             steps.append({"arch": cfg.name, "storage": storage,
                           "n_shards": bb.engine.cfg.n_shards,

@@ -7,9 +7,12 @@ fixed order l = 0..L-1 (``kernels/ref.py:_fixed_order_masked_sls`` is the
 plain version, the CUDA kernels the fast one), so lookups do not depend on
 the impl: with 0/1 weights they are bitwise equal.
 
-Gather-once dedup (``dedup=True``) gathers and dequantizes every unique
-owned row once into a staging buffer and accumulates through a slot per
-entry in the same l order, so it is bitwise equal to ``dedup=False``.
+Gather-once dedup (``dedup=True``) gives every unique owned row one slot
+of a plan and accumulates through the slot per entry in the same l
+order, so it is bitwise equal to ``dedup=False``.  The plain versions
+stage the slots' rows as the reference does; the CUDA kernels read each
+row through its slot, duplicates from the L2 (``kernels/csrc/
+gather_once.cuh``), and only the partial pool's stages them.
 
 Shards.  The cold tier of an engine with S shards is S equal slices of
 one tensor, and a per-shard ownership mask (S, ...) pools each shard's
@@ -40,8 +43,8 @@ class DedupPlan(NamedTuple):
 
     Capacity is always ``N = B*L`` (every entry unique), so no shape
     depends on the data and nothing waits for the card: ``n_slots`` and
-    ``n_unique`` stay device tensors, and the kernels read ``n_slots`` on
-    the card to bound their staging loop."""
+    ``n_unique`` stay device tensors, and the gather-once partial pool
+    reads ``n_slots`` on the card to bound its staging loop."""
     unique_rows: torch.Tensor   # (N,) int32 row per staging slot (padded
     #                             slots and the non-owned run hold the sentinel)
     slots: torch.Tensor         # (B, L) int32 staging slot per pooling entry
@@ -152,8 +155,8 @@ def fused_front_end_dense(cold_storage: torch.Tensor,
     feature row 0.  Returns the (B, P) packed lower triangle of the
     (B, G+1, D) features' pairwise dots, bitwise equal to the split
     composition inside the port.  ``dedup=True`` builds one plan per tier
-    (cold with scales, hot without) and stages each tier's unique rows
-    once; the result does not change."""
+    (cold with scales, hot without) and reads each tier's rows through its
+    plan; the result does not change."""
     B, G, L = local_rows.shape
     D = cold_storage.shape[-1]
     F = G + 1

@@ -1,5 +1,6 @@
-// Shared device helpers: vectorized row loads and the fixed-order SLS
-// accumulate step used by both masked_sls.cu and fused_front_end.cu.
+// Shared device helpers: vectorized row loads and stores and the
+// fixed-order SLS accumulate step used by masked_sls.cu and
+// fused_front_end.cu.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,6 +28,22 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, float* v) {
   } else {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] = static_cast<float>(__ldg(p + k));
+  }
+}
+
+// Store VEC consecutive floats: 16-byte vector stores when VEC % 4 == 0
+// (the caller guarantees 16-byte alignment), else scalar.
+template <int VEC>
+__device__ __forceinline__ void store_row(float* __restrict__ p,
+                                          const float* v) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) p[k] = v[k];
   }
 }
 

@@ -16,12 +16,23 @@
 // The pooled features never reach device memory, and the result equals
 // split (masked_sls per tier -> add -> dot_interaction) bit for bit.
 //
-// fused_front_end_dedup (below) replaces src/repro/kernels/sls.py:
-// fused_front_end_dedup_pallas (the same body with dedup=True): each tier's
-// unique rows are staged once (dedup_stage.cuh; cold with its scales, hot
-// without), then this kernel, with DEDUP set, reads cstage[cslots[e]] and
-// hstage[hslots[e]] in place of the per-entry gathers.  Same operands and
-// order, so it equals fused_front_end, and split, bit for bit.
+// fused_front_end_dedup (below) replaces src/repro/kernels/sls.py:623
+// fused_front_end_dedup_pallas (its pallas_call at :683), a kernel of its
+// own (fused_front_end_dedup_kernel): one launch that reads each tier's
+// rows through its plan -- cold c_unique[c_slots[e]] with its scale, hot
+// h_unique[h_slots[e]] -- with no staging buffer (gather_once.cuh), writes
+// cold + hot (__fadd_rn) into the shared feature tile and calls
+// interact_tile, so it equals fused_front_end, and split, bit for bit.
+// Bound: bytes (each tier's distinct rows once, plus x and the triangle);
+// in practice latency, each bag's chain metadata -> slot's row id -> row.
+// Design: a team per bag takes its entries in runs, both tiers' metadata
+// in one round trip into shared memory, each tier's kept entries
+// compacted in l order, then two entries' cold and hot rows in flight
+// per lane; one CTA per tile of BB samples (sls.py:
+// front_end_dedup_shape).  Spreading a tile's bags over a cluster of CTAs
+// that pool into the first one's shared memory (so that batch 32 runs on
+// 128 SMs, not 32) was measured slower at every batch (PERF.md): at batch
+// 32 each bag's chain of loads is the time, not the SMs.
 //
 // fused_partial_pool and fused_partial_pool_dedup (below) replace
 // src/repro/kernels/sls.py:fused_partial_pool_pallas and
@@ -67,17 +78,17 @@
 
 #include "common.cuh"
 #include "dedup_stage.cuh"
+#include "gather_once.cuh"
 #include "interaction.cuh"
 
-template <typename T, int VEC, bool DEDUP>
+template <typename T, int VEC>
 __global__ void fused_front_end_kernel(
     const T* __restrict__ cold, const float* __restrict__ hot,
     const float* __restrict__ x, const int32_t* __restrict__ rows,
     const uint8_t* __restrict__ owned, const uint8_t* __restrict__ is_hot,
     const float* __restrict__ w, const float* __restrict__ scales,
     float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
-    int team, const int32_t* __restrict__ hslots,
-    const float* __restrict__ cstage, const float* __restrict__ hstage) {
+    int team) {
   extern __shared__ float tile[];
   const int F = G + 1;
   const int lds = D + 1;
@@ -110,21 +121,11 @@ __global__ void fused_front_end_kernel(
         const float fc = entry_factor(true, own, w, e);
         const float fh = entry_factor(true, hit, w, e);
         float vc[VEC], vh[VEC];
-        if constexpr (DEDUP) {
-          // rows holds the cold staging slots; out-of-tier entries read
-          // their tier's (finite) sentinel slot with f = 0
-          const int64_t uc = __ldg(rows + e);
-          load_row<float, VEC>(cstage + uc * D + c * VEC, vc);
-          const int64_t uh = __ldg(hslots + e);
-          load_row<float, VEC>(hstage + uh * D + c * VEC, vh);
-          accumulate<VEC>(acc_c, fc, vc, nullptr);
-        } else {
-          const int64_t r = __ldg(rows + e);
-          load_row<T, VEC>(cold + (own ? r : 0) * D + c * VEC, vc);
-          load_row<float, VEC>(hot + (hit ? r : 0) * D + c * VEC, vh);
-          accumulate<VEC>(acc_c, fc, vc,
-                          scales == nullptr ? nullptr : scales + e);
-        }
+        const int64_t r = __ldg(rows + e);
+        load_row<T, VEC>(cold + (own ? r : 0) * D + c * VEC, vc);
+        load_row<float, VEC>(hot + (hit ? r : 0) * D + c * VEC, vh);
+        accumulate<VEC>(acc_c, fc, vc,
+                        scales == nullptr ? nullptr : scales + e);
         accumulate<VEC>(acc_h, fh, vh, nullptr);
       }
       float* dst = tile + (s * F + g + 1) * lds;
@@ -137,14 +138,12 @@ __global__ void fused_front_end_kernel(
   interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
 }
 
-template <typename T, int VEC, bool DEDUP = false>
+template <typename T, int VEC>
 static int launch(const void* cold, const float* hot, const float* x,
                   const int32_t* rows, const uint8_t* owned,
                   const uint8_t* is_hot, const float* w, const float* scales,
                   float* out, int B, int G, int L, int D, int P, int max_bb,
-                  cudaStream_t stream, const int32_t* hslots = nullptr,
-                  const float* cstage = nullptr,
-                  const float* hstage = nullptr) {
+                  cudaStream_t stream) {
   const int threads = 256;
   const int team = team_size(D / VEC);
   // A team walks its bags' entries one gather after another, so the
@@ -157,41 +156,135 @@ static int launch(const void* cold, const float* hot, const float* x,
   // without it the launch is refused
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_front_end_kernel<T, VEC, DEDUP>,
+        fused_front_end_kernel<T, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (B + BB - 1) / BB;
   if (blocks > 0) {
-    fused_front_end_kernel<T, VEC, DEDUP><<<blocks, threads, smem, stream>>>(
+    fused_front_end_kernel<T, VEC><<<blocks, threads, smem, stream>>>(
         static_cast<const T*>(cold), hot, x, rows, owned, is_hot, w, scales,
-        out, B, G, L, D, P, BB, team, hslots, cstage, hstage);
+        out, B, G, L, D, P, BB, team);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Stage each tier's unique rows, then the fused kernel through the slots,
-// on one stream.  VEC is the float32 staging chunk (see dedup_stage.cuh);
-// T only types the cold table.  U: the plans' capacity.
+constexpr int FE_DEDUP_THREADS = 256;   // fused_front_end_dedup CTA, at most
+constexpr int FE_DEDUP_U = 2;           // kept entries per tier in flight
+
+// The gather-once fused front end: one CTA per feature tile of BB samples
+// (blockIdx.x); its teams walk the tile's BB * G bags, one bag per team at
+// a time, and write each pooled row cold + hot into the tile; then x as
+// row 0 and interact_tile.  Two entries per tier in flight and registers
+// capped for 4 CTAs per SM (2 for int8's 16-code chunks) ran faster than
+// four in flight uncapped (2 CTAs per SM): more CTAs per SM overlap one
+// tile's interaction with other tiles' loads (PERF.md).
 template <typename T, int VEC>
-static int launch_dedup(const void* cold, int64_t Vc, const float* hot,
-                        int64_t Vh, const float* x, const int32_t* cuniq,
-                        const int32_t* cn, const float* cscales,
-                        const int32_t* huniq, const int32_t* hn,
-                        float* cstage, float* hstage, int U,
-                        const int32_t* cslots, const int32_t* hslots,
-                        const uint8_t* owned, const uint8_t* is_hot,
-                        const float* w, float* out, int B, int G, int L,
-                        int D, int P, int max_bb, cudaStream_t stream) {
-  launch_stage<T, VEC>(static_cast<const T*>(cold), Vc, D, cuniq, cn,
-                       cscales, cstage, U, stream);
-  launch_stage<float, VEC>(hot, Vh, D, huniq, hn, nullptr, hstage, U,
-                           stream);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch<float, VEC, true>(cold, hot, x, cslots, owned, is_hot, w,
-                                  nullptr, out, B, G, L, D, P, max_bb,
-                                  stream, hslots, cstage, hstage);
+__global__ void __launch_bounds__(FE_DEDUP_THREADS, VEC >= 16 ? 2 : 4)
+    fused_front_end_dedup_kernel(
+        const T* __restrict__ cold, int64_t Vc, const float* __restrict__ hot,
+        int64_t Vh, const float* __restrict__ x,
+        const int32_t* __restrict__ cuniq, const float* __restrict__ cscales,
+        const int32_t* __restrict__ huniq, const int32_t* __restrict__ cslots,
+        const int32_t* __restrict__ hslots, const uint8_t* __restrict__ owned,
+        const uint8_t* __restrict__ is_hot, const float* __restrict__ w,
+        float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
+        int team) {
+  extern __shared__ float tile[];
+  __shared__ PlanEntry meta_c[FE_DEDUP_THREADS], meta_h[FE_DEDUP_THREADS];
+  constexpr bool kScaled = sizeof(T) == 1;   // int8 cold rows
+  constexpr int U = FE_DEDUP_U;
+  const int F = G + 1;
+  const int lds = D + 1;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * BB;
+  const int nb = static_cast<int>(min(static_cast<int64_t>(BB), B - b0));
+  // feature row 0 of each sample: x
+  for (int e = threadIdx.x; e < nb * D; e += blockDim.x) {
+    const int s = e / D;
+    const int d = e - s * D;
+    tile[s * F * lds + d] = __ldg(x + b0 * D + e);
+  }
+  const int teams = blockDim.x / team;
+  const int lane = threadIdx.x % team;
+  const int chunks = D / VEC;
+  PlanEntry* tc = meta_c + (threadIdx.x - lane);
+  PlanEntry* th = meta_h + (threadIdx.x - lane);
+  // the same trip counts for every lane of a warp (team_compact)
+  for (int q0 = 0; q0 < nb * G; q0 += teams) {
+    const int q = q0 + static_cast<int>(threadIdx.x) / team;
+    const bool valid = q < nb * G;
+    const int s = q / G;
+    const int g = q - s * G;
+    const int64_t e0 = ((b0 + s) * G + g) * L;
+    for (int c0 = 0; c0 < chunks; c0 += team) {
+      const int c = c0 + lane;
+      const bool active = valid && c < chunks;
+      float acc_c[VEC], acc_h[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc_c[k] = acc_h[k] = 0.0f;
+      for (int l0 = 0; l0 < L; l0 += team) {
+        const int n = min(team, L - l0);
+        const bool mine = valid && lane < n;
+        const int64_t e = e0 + l0 + lane;
+        const float f = mine ? entry_factor(true, true, w, e) : 0.0f;
+        __syncwarp();
+        PlanEntry pc, ph;
+        const bool kc = plan_load<kScaled>(mine, e, f, owned, cslots, cuniq,
+                                           cscales, Vc, D, &pc);
+        const bool kh = plan_load<false>(mine, e, f, is_hot, hslots, huniq,
+                                         nullptr, Vh, D, &ph);
+        const int mc = plan_keep(kc, pc, lane, team, tc);
+        const int mh = plan_keep(kh, ph, lane, team, th);
+        __syncwarp();
+        if (!active) continue;
+        for (int j0 = 0; j0 < max(mc, mh); j0 += U) {
+          RowChunk<T, VEC> rc[U];
+          RowChunk<float, VEC> rh[U];
+          gather_kept<T, VEC, U>(cold, tc, j0, mc, c, rc);
+          gather_kept<float, VEC, U>(hot, th, j0, mh, c, rh);
+          add_kept<T, VEC, U, kScaled>(tc, j0, mc, rc, acc_c);
+          add_kept<float, VEC, U, false>(th, j0, mh, rh, acc_h);
+        }
+      }
+      if (active) {
+        float* dst = tile + (s * F + g + 1) * lds + c * VEC;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) dst[k] = __fadd_rn(acc_c[k], acc_h[k]);
+      }
+    }
+  }
+  __syncthreads();
+  interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
+}
+
+// One CTA per tile of BB samples; threads a multiple of 32 and of the team.
+template <typename T, int VEC>
+static int launch_front_end_dedup(
+    const T* cold, int64_t Vc, const float* hot, int64_t Vh, const float* x,
+    const int32_t* cuniq, const float* cscales, const int32_t* huniq,
+    const int32_t* cslots, const int32_t* hslots, const uint8_t* owned,
+    const uint8_t* is_hot, const float* w, float* out, int B, int G, int L,
+    int D, int BB, int threads, cudaStream_t stream) {
+  const int team = team_size(D / VEC);
+  if (threads % 32 != 0 || threads > FE_DEDUP_THREADS || threads % team ||
+      BB < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int P = G * (G + 1) / 2;
+  const size_t smem =
+      static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
+  auto kernel = fused_front_end_dedup_kernel<T, VEC>;
+  // the static metadata (2 * FE_DEDUP_THREADS PlanEntry) counts against the
+  // 48 KB a block gets without the opt-in
+  if (smem + 2 * FE_DEDUP_THREADS * sizeof(PlanEntry) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(B + BB - 1) / BB, threads, smem, stream>>>(
+      cold, Vc, hot, Vh, x, cuniq, cscales, huniq, cslots, hslots, owned,
+      is_hot, w, out, B, G, L, D, P, BB, team);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One entry of a team's current run, as the partial pool's row phase reads
@@ -454,54 +547,40 @@ extern "C" int fused_front_end(const void* cold, int itemsize, int vec16,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// cold (Vc, D) float32 or int8; hot (Vh, D) float32; x (B, D) float32;
-// c_/h_uniq (U,) int32, c_/h_n (1,) int32 on the card, c_scales (U,)
-// float32 or null (int8 only): one dedup plan per tier; c_/h_stage (U, D)
-// float32 scratch; c_/h_slots, owned, is_hot (B, G, L); w (B, G, L) or
-// null; out (B, P) float32.  max_bb as for fused_front_end.
+// cold (Vc, D) float32 or int8 (itemsize 4 / 1); hot (Vh, D) float32;
+// x (B, D) float32; c_/h_uniq (U,) int32 row per slot (one dedup plan per
+// tier), c_scales (U,) float32, given exactly for an int8 cold tier;
+// c_/h_slots, owned, is_hot (B, G, L); w (B, G, L) or null; out (B, P)
+// float32.  vec (as for masked_sls_dedup), BB samples per CTA and threads
+// per CTA are the wrapper's choice (sls.py: front_end_dedup_shape).
 extern "C" int fused_front_end_dedup(
-    const void* cold, int itemsize, int64_t Vc, int vec16, const void* hot,
-    int64_t Vh, const void* x, const void* c_uniq, const void* c_n,
-    const void* c_scales, const void* h_uniq, const void* h_n,
-    void* c_stage, void* h_stage, int U, const void* c_slots,
-    const void* h_slots, const void* owned, const void* is_hot,
-    const void* w, void* out, int B, int G, int L, int D, int max_bb,
-    void* stream) {
-  const int P = G * (G + 1) / 2;
+    const void* cold, int itemsize, int64_t Vc, int vec, const void* hot,
+    int64_t Vh, const void* x, const void* c_uniq, const void* c_scales,
+    const void* h_uniq, const void* c_slots, const void* h_slots,
+    const void* owned, const void* is_hot, const void* w, void* out, int B,
+    int G, int L, int D, int BB, int threads, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
   auto cu = static_cast<const int32_t*>(c_uniq);
-  auto cn = static_cast<const int32_t*>(c_n);
   auto cs = static_cast<const float*>(c_scales);
   auto hu = static_cast<const int32_t*>(h_uniq);
-  auto hn = static_cast<const int32_t*>(h_n);
-  auto cst = static_cast<float*>(c_stage);
-  auto hst = static_cast<float*>(h_stage);
   auto csl = static_cast<const int32_t*>(c_slots);
   auto hsl = static_cast<const int32_t*>(h_slots);
   auto m = static_cast<const uint8_t*>(owned);
   auto hm = static_cast<const uint8_t*>(is_hot);
   auto wf = static_cast<const float*>(w);
   auto o = static_cast<float*>(out);
-  if (itemsize == 4) {
-    return vec16
-        ? launch_dedup<float, 4>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                 cst, hst, U, csl, hsl, m, hm, wf, o, B,
-                                 G, L, D, P, max_bb, s)
-        : launch_dedup<float, 1>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                 cst, hst, U, csl, hsl, m, hm, wf, o, B,
-                                 G, L, D, P, max_bb, s);
-  }
-  if (itemsize == 1) {
-    return vec16
-        ? launch_dedup<int8_t, 4>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                  cst, hst, U, csl, hsl, m, hm, wf, o, B,
-                                  G, L, D, P, max_bb, s)
-        : launch_dedup<int8_t, 1>(cold, Vc, h, Vh, xf, cu, cn, cs, hu, hn,
-                                  cst, hst, U, csl, hsl, m, hm, wf, o, B,
-                                  G, L, D, P, max_bb, s);
-  }
+#define FE_DEDUP(T, VEC)                                                    \
+  launch_front_end_dedup<T, VEC>(static_cast<const T*>(cold), Vc, h, Vh, xf, \
+                                 cu, cs, hu, csl, hsl, m, hm, wf, o, B, G, L, \
+                                 D, BB, threads, s)
+  if (itemsize == 4 && vec == 4) return FE_DEDUP(float, 4);
+  if (itemsize == 4 && vec == 1) return FE_DEDUP(float, 1);
+  if (itemsize == 1 && vec == 16) return FE_DEDUP(int8_t, 16);
+  if (itemsize == 1 && vec == 4) return FE_DEDUP(int8_t, 4);
+  if (itemsize == 1 && vec == 1) return FE_DEDUP(int8_t, 1);
+#undef FE_DEDUP
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -77,9 +77,9 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
 def masked_sls_dedup(table: torch.Tensor, plan, owned: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
                      impl: str = "cuda") -> torch.Tensor:
-    """Gather-once masked partial SLS: (N, L) -> (N, D) float32, each unique
-    owned row gathered (and dequantized) once.  ``plan`` is a
-    ``core.sls.DedupPlan`` of the same bags.  Bitwise equal to
+    """Gather-once masked partial SLS: (N, L) -> (N, D) float32, each owned
+    entry's row read through its slot of ``plan`` (a ``core.sls.DedupPlan``
+    of the same bags; duplicates of a row share a slot).  Bitwise equal to
     :func:`masked_sls` on the same entries."""
     _sls.check_masked_sls_dedup(table, plan.unique_rows, plan.slots, owned,
                                 plan.n_slots, weights, plan.unique_scales)

@@ -11,13 +11,15 @@
   shared-memory feature tile and runs the interaction on it, so the pooled
   features never reach device memory.
 * ``masked_sls_dedup`` and ``fused_front_end_dedup`` -- the gather-once
-  variants, in the same sources; they replace
+  variants, kernels of their own in the same sources; they replace
   ``repro/kernels/sls.py:masked_sls_dedup_pallas`` and
-  ``fused_front_end_dedup_pallas``.  Two launches on one stream: a stage
-  kernel gathers (and dequantizes) each unique row once into a float32
-  staging buffer the wrapper allocates, then the accumulate above reads it
-  through the plan's slots.  Bound by bytes (each distinct row once, plus
-  the staging round trip, which L2 holds while it fits).
+  ``fused_front_end_dedup_pallas``.  One launch each, no staging buffer:
+  each entry's row is read through the plan, ``unique_rows[slots[e]]``,
+  so duplicates share one address and the L2 serves them
+  (``csrc/gather_once.cuh``).  Bound by bytes (each distinct row once), in
+  practice by each bag's chain of metadata -> row id -> row loads; a team
+  of threads per bag keeps several rows in flight, in launches shaped by
+  :func:`sls_dedup_shape` and :func:`front_end_dedup_shape`.
 * ``fused_partial_pool`` and ``fused_partial_pool_dedup`` -- the pooling
   stopped before the interaction, in a kernel of its own in
   ``csrc/fused_front_end.cu``; they replace
@@ -175,6 +177,70 @@ def fused_block(B: int, F: int, D: int, n_sm: int) -> int:
     return max(1, min(MAX_BLOCK_B, -(-B // n_sm), fit))
 
 
+SLS_DEDUP_THREADS = 64     # threads per masked_sls_dedup block, at most
+FE_DEDUP_THREADS = 256     # threads per fused_front_end_dedup CTA, at most
+PLAN_ENTRY_BYTES = 16      # shared memory per thread and tier (PlanEntry)
+
+
+def team_size(chunks: int) -> int:
+    """Threads per bag: the least power of two >= min(chunks, 32)
+    (``csrc/common.cuh: team_size``)."""
+    team = 1
+    while team < chunks and team < 32:
+        team *= 2
+    return team
+
+
+def sls_dedup_shape(N: int, D: int, itemsize: int, aligned: bool,
+                    n_sm: int):
+    """Launch shape of ``masked_sls_dedup``: (vec, team, inflight, threads,
+    blocks).
+
+    Row elements per lane as the partial pool takes them (:func:`pool_vec`,
+    one shard), a team of threads per bag, and blocks of whole warps and at
+    most ``SLS_DEDUP_THREADS`` threads, with few enough bags per block that
+    the N bags spread over every SM (batch 32 at one shard: 256 bags, 128
+    blocks).  Block ``i`` holds bags ``i * threads / team`` onwards.  Rows
+    in flight per lane: 8 below ``WALK_MIN_BAGS_PER_SM`` bags per SM (the
+    card is mostly idle and each bag's chain of loads is the time), else 4
+    (fewer registers, more warps)."""
+    if N < 1:
+        raise ValueError(f"masked_sls_dedup needs N >= 1 bags, got {N}")
+    vec = pool_vec(D, itemsize, aligned, 1, N, n_sm)
+    team = team_size(D // vec)
+    warp = 32 // team                      # bags per warp
+    per = min(SLS_DEDUP_THREADS // team, -(-N // (n_sm * warp)) * warp)
+    inflight = 8 if N < WALK_MIN_BAGS_PER_SM * n_sm else 4
+    return vec, team, inflight, per * team, -(-N // per)
+
+
+def front_end_dedup_shape(B: int, G: int, D: int, itemsize: int,
+                          aligned: bool, n_sm: int):
+    """Launch shape of ``fused_front_end_dedup``: (vec, team, BB, threads);
+    the grid is ``ceil(B / BB)`` CTAs, one per feature tile of BB samples.
+
+    Row elements per lane as :func:`pool_vec` picks them for one shard, a
+    team of threads per bag, BB as :func:`fused_block` picks it with at
+    most one bag per team of a full CTA (so a small batch gets one CTA per
+    sample), and whole warps, at most ``FE_DEDUP_THREADS``, one team per
+    bag of the tile where they fit (the teams walk the rest in turn).
+    Raises where shared memory cannot hold one sample's tile beside the
+    metadata."""
+    if G < 1:
+        raise ValueError(f"fused_front_end_dedup needs G >= 1, got {G}")
+    F = G + 1
+    meta = 2 * FE_DEDUP_THREADS * PLAN_ENTRY_BYTES
+    fit = (SMEM_MAX - meta) // (F * (D + 1) * 4)
+    if fit < 1:
+        raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
+    vec = pool_vec(D, itemsize, aligned, 1, B * G, n_sm)
+    team = team_size(D // vec)
+    BB = max(1, min(fused_block(B, F, D, n_sm), fit,
+                    FE_DEDUP_THREADS // team // G))
+    threads = min(FE_DEDUP_THREADS, -(-BB * G * team // 32) * 32)
+    return vec, team, BB, threads
+
+
 def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
                     rows: torch.Tensor, owned: torch.Tensor,
                     is_hot: torch.Tensor,
@@ -242,8 +308,10 @@ def masked_sls_dedup(table: torch.Tensor, unique_rows: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
                      unique_scales: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """Gather-once masked SLS on the card: (N, L) bags -> (N, D) float32
-    (plain version: ``ref.masked_sls_dedup_ref``)."""
+    """Gather-once masked SLS on the card, one launch reading each row
+    through the plan: (N, L) bags -> (N, D) float32 (plain version:
+    ``ref.masked_sls_dedup_ref``).  ``n_slots`` is part of the plan's
+    contract; the kernel, which stages nothing, does not read it."""
     check_masked_sls_dedup(table, unique_rows, slots, owned, n_slots,
                            weights, unique_scales)
     if table.device.type != "cuda":
@@ -255,16 +323,17 @@ def masked_sls_dedup(table: torch.Tensor, unique_rows: torch.Tensor,
         return out
     if L == 0:
         return out.zero_()
-    U = N * L
-    staging = torch.empty((U, D), dtype=torch.float32, device=table.device)
+    n_sm = torch.cuda.get_device_properties(table.device).multi_processor_count
+    vec, _, inflight, threads, _ = sls_dedup_shape(
+        N, D, table.element_size(),
+        bool(_vec16(D, table.element_size(), table)), n_sm)
     fn = build.entry("masked_sls_dedup",
-                     [_P, _I, _I64, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                      _P, _I, _I, _P])
-    err = fn(table.data_ptr(), table.element_size(), V, D,
-             _vec16(D, table.element_size(), table), unique_rows.data_ptr(),
-             n_slots.data_ptr(), _ptr(unique_scales), staging.data_ptr(), U,
-             slots.data_ptr(), owned.data_ptr(), _ptr(weights),
-             out.data_ptr(), N, L, _stream(table))
+                     [_P, _I, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _P])
+    err = fn(table.data_ptr(), table.element_size(), V, D, vec, inflight,
+             unique_rows.data_ptr(), _ptr(unique_scales), slots.data_ptr(),
+             owned.data_ptr(), _ptr(weights), out.data_ptr(), N, L, threads,
+             _stream(table))
     build.check("masked_sls_dedup", err)
     build.KERNELS["masked_sls_dedup"].launches += 1
     return out
@@ -294,9 +363,10 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
                           weights: Optional[torch.Tensor] = None,
                           c_scales: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Gather-once fused front end on the card: per-tier staging, then the
-    fused kernel through the slots -> (B, P) (plain version:
-    ``ref.fused_front_end_dedup_ref``)."""
+    """Gather-once fused front end on the card, one launch reading each
+    tier's rows through its plan -> (B, P) (plain version:
+    ``ref.fused_front_end_dedup_ref``).  ``c_n`` and ``h_n`` are part of the
+    plans' contract; the kernel does not read them."""
     check_fused_front_end_dedup(cold, hot, x, c_unique, c_slots, c_n,
                                 h_unique, h_slots, h_n, owned, is_hot,
                                 weights, c_scales)
@@ -313,23 +383,19 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
     if L == 0:
         raise ValueError("fused_front_end_dedup needs L >= 1 (core/sls.py "
                          "answers empty bags with zeros)")
-    U = B * G * L
-    c_stage = torch.empty((U, D), dtype=torch.float32, device=cold.device)
-    h_stage = torch.empty((U, D), dtype=torch.float32, device=cold.device)
     n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
-    max_bb = fused_block(B, F, D, n_sm)
+    vec, _, BB, threads = front_end_dedup_shape(
+        B, G, D, cold.element_size(),
+        bool(_vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot)), n_sm)
     fn = build.entry("fused_front_end_dedup",
-                     [_P, _I, _I64, _I, _P, _I64, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _P])
-    err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0],
-             _vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot),
+                     [_P, _I, _I64, _I, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0], vec,
              hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
-             c_n.data_ptr(), _ptr(c_scales), h_unique.data_ptr(),
-             h_n.data_ptr(), c_stage.data_ptr(), h_stage.data_ptr(), U,
-             c_slots.data_ptr(), h_slots.data_ptr(), owned.data_ptr(),
-             is_hot.data_ptr(), _ptr(weights), out.data_ptr(), B, G, L, D,
-             max_bb, _stream(cold))
+             _ptr(c_scales), h_unique.data_ptr(), c_slots.data_ptr(),
+             h_slots.data_ptr(), owned.data_ptr(), is_hot.data_ptr(),
+             _ptr(weights), out.data_ptr(), B, G, L, D, BB, threads,
+             _stream(cold))
     build.check("fused_front_end_dedup", err)
     build.KERNELS["fused_front_end_dedup"].launches += 1
     return out

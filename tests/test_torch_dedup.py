@@ -347,30 +347,68 @@ def test_default_budget_resolves_on_at_32_and_off_at_2048(dim):
                 fused_blocks=32 if fe == "fused" else None) is on
 
 
+def _edged(table, storage, rng):
+    """``table`` between two rows of +-1e30 (int8: +-127): row 0 and the
+    last row, the rows a masked entry reads (per entry, or through the
+    plan's sentinel slot); real rows move up by one."""
+    sign = np.where(rng.random((2, table.shape[1])) < 0.5, -1, 1)
+    huge = ((sign * 127).astype(np.int8) if storage == "int8"
+            else (sign * 1e30).astype(np.float32))
+    return np.concatenate([huge[:1], table, huge[1:]])
+
+
+def _check_dedup_kernels(dev):
+    """The gather-once kernels (on ``dev``) against the per-entry ones on
+    the same entries, bitwise for every weight, and against their plain
+    versions, bitwise at 0/1 weights: on random and all-masked batches,
+    and with every masked entry reading a row of +-1e30 (int8: +-127 under
+    a masked entry's scale of 1e28)."""
+    rng = np.random.default_rng(17)
+    T = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        np.asarray(a), device=dev)
+    for storage in ("fp32", "int8"):
+        for weighting in ("01", "general"):
+            for kind in ("random", "all_masked"):
+                table, idx, owned, w, scales = _bags(2, 37 * 8, 7, 300, 64,
+                                                     storage, weighting,
+                                                     kind)
+                t = [T(a) for a in (table, idx, owned, w, scales)]
+                want = ops.masked_sls(*t)
+                s1 = (None if scales is None else
+                      np.where(owned, scales, np.float32(1e28)))
+                for tb, ix in ((table, idx), (_edged(table, storage, rng),
+                                              idx + 1)):
+                    plan = sls.dedup_plan(T(ix), t[2], T(s1))
+                    got = ops.masked_sls_dedup(T(tb), plan, t[2], t[3])
+                    assert torch.equal(got, want)
+                    if weighting == "01":
+                        assert torch.equal(got, ops.masked_sls_dedup(
+                            T(tb), plan, t[2], t[3], impl="torch"))
+                cold, hot, x, rows, own3, hot3, w3, s3 = _fe_case(
+                    2, 37, 8, 7, 300, 200, 64, storage, weighting)
+                if kind == "all_masked":
+                    own3 = np.zeros_like(own3)
+                    hot3 = np.zeros_like(hot3)
+                fe = [T(a) for a in (cold, hot, x, rows, own3, hot3, w3, s3)]
+                want = sls.fused_front_end_dense(*fe[:6], weights=fe[6],
+                                                 scales=fe[7])
+                s1 = (None if s3 is None else
+                      np.where(own3, s3, np.float32(1e28)))
+                for c, h, r in ((cold, hot, rows),
+                                (_edged(cold, storage, rng),
+                                 _edged(hot, "fp32", rng), rows + 1)):
+                    dd = sls.fused_front_end_dense(
+                        T(c), T(h), fe[2], T(r), fe[4], fe[5], weights=fe[6],
+                        scales=T(s1), dedup=True)
+                    assert torch.equal(dd, want)
+
+
 @pytest.mark.cuda
 def test_cuda_dedup_kernels_match_plain_and_nondedup_on_the_card():
     """The dedup kernels on the card: bitwise equal to their plain versions
-    at 0/1 weights and to the non-dedup kernels at every weight
+    at 0/1 weights and to the non-dedup kernels at every weight, on random
+    and all-masked batches, with rows of +-1e30 under every masked entry
     (chip_smoke.py runs the full sweep)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
-    dev = torch.device("cuda")
-    for storage in ("fp32", "int8"):
-        for weighting in ("01", "general"):
-            table, idx, owned, w, scales = _bags(2, 37 * 8, 7, 300, 64,
-                                                 storage, weighting)
-            t = [None if a is None else torch.as_tensor(a, device=dev)
-                 for a in (table, idx, owned, w, scales)]
-            plan = sls.dedup_plan(t[1], t[2], t[4])
-            got = ops.masked_sls_dedup(t[0], plan, t[2], t[3])
-            assert torch.equal(got, ops.masked_sls(*t))
-            if weighting == "01":
-                assert torch.equal(got, ops.masked_sls_dedup(
-                    t[0], plan, t[2], t[3], impl="torch"))
-            fe = [None if a is None else torch.as_tensor(a, device=dev)
-                  for a in _fe_case(2, 37, 8, 7, 300, 200, 64, storage,
-                                    weighting)]
-            dd = sls.fused_front_end_dense(*fe[:6], weights=fe[6],
-                                           scales=fe[7], dedup=True)
-            assert torch.equal(dd, sls.fused_front_end_dense(
-                *fe[:6], weights=fe[6], scales=fe[7]))
+    _check_dedup_kernels(torch.device("cuda"))
