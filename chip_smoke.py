@@ -9,7 +9,11 @@
 2. kernel phase: holds each kernel against its plain PyTorch version on
    the card -- D in {16, 18, 64, 128}, fp32 and int8 tables, weights of 0/1
    (bitwise) and general weights (tolerance below), L = 7, batches that
-   no block size divides, and an empty hot tier -- and each gather-once
+   no block size divides, and an empty hot tier; the per-entry kernels
+   masked_sls and fused_front_end also at L above a team's run, with bag
+   counts on both sides of WALK_MIN_BAGS_PER_SM per SM, every entry
+   masked, and rows of +-1e30 (int8: +-127 under a scale of 1e28) at row
+   0 and under every masked entry of either tier -- and each gather-once
    (dedup) kernel against the kernel it varies, bitwise for every weight,
    on random, all-duplicate, all-unique and all-masked batches, at
    (B, G, L) that no block divides evenly, and with
@@ -34,7 +38,10 @@
    bitwise, that kernel-path lookups equal the plain path bitwise and
    kernel-path scores the plain path's within tolerance, and that every
    kernel of the path was launched (launch counts are zeroed just before
-   the path's serve runs and read just after);
+   the path's serve runs and read just after); and serves one batch
+   holding out-of-range and negative ids (the reference clamps them) at 1
+   and 4 shards, split and fused: no device-side assert, lookups bitwise
+   equal to the plain path's, fused == split;
 4. dedup serve phase, per configuration: the same serve runs with
    ``dedup='on'`` (at batch 32 under the 4 MiB staging budget, at batch
    2048 with the budget raised so that it resolves on) give scores
@@ -232,16 +239,17 @@ def dedup_cost(table, plan) -> dict:
 def device_busy(step, state, batch, step_ms: float, reps: int = 10) -> dict:
     """Device time of one serve step from ``torch.profiler`` (the sum of
     its kernels and copies), its share of the step's host-clock time, the
-    device operations (kernels and copies) per step, and the kernels that
-    take most of it.  ``None`` where the profiler saw no device
-    activity."""
+    device operations (kernels and copies) per step, those whose count is
+    not the same in every step (``uneven_ops``: work that not every step
+    runs, or records the profiler lost), and the kernels that take most of
+    it.  ``None`` where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step(state, batch)
         torch.cuda.synchronize()
-    dev, n_ops = {}, 0
+    dev, n_ops, uneven = {}, 0, {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             t = getattr(ev, "device_time_total", None)
@@ -249,13 +257,17 @@ def device_busy(step, state, batch, step_ms: float, reps: int = 10) -> dict:
                 t = ev.cuda_time_total
             dev[ev.key] = t / 1e3 / reps                 # us -> ms per step
             n_ops += ev.count
+            if ev.count % reps:
+                k = ev.key[:60]
+                uneven[k] = uneven.get(k, 0.0) + ev.count / reps
     busy = sum(dev.values())
     if busy <= 0:
         return {"device_busy_ms": None, "idle_share": None,
-                "device_ops": None, "top_device_ms": None}
+                "device_ops": None, "uneven_ops": None,
+                "top_device_ms": None}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
     return {"device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
-            "device_ops": n_ops / reps,
+            "device_ops": n_ops / reps, "uneven_ops": uneven,
             "top_device_ms": {k[:60]: v for k, v in top}}
 
 
@@ -414,10 +426,12 @@ def kernel_phase(gen: torch.Generator) -> None:
             split = ops.dot_interaction(torch.cat(
                 [x[:, None], (cold_p + 0.0).reshape(B, G, D)], 1))
             assert_equal(fk, split, f"fused empty-hot D={D} {storage}")
+    n_edge = per_entry_edge_checks(gen)
     n_dedup = dedup_kernel_checks(gen)
     n_tp = partial_pool_kernel_checks(gen)
     torch.cuda.synchronize()
-    print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_dedup} "
+    print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_edge} "
+          f"per-entry edge cases + {n_dedup} "
           f"gather-once cases + {n_tp} partial-pool/resume cases passed; "
           f"launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
@@ -506,8 +520,8 @@ def dedup_kernel_checks(gen: torch.Generator) -> int:
 
 def dedup_edge_checks(gen: torch.Generator) -> int:
     """The gather-once kernels read rows through the plan and skip masked
-    entries, in launches shaped by the batch (``sls_dedup_shape``,
-    ``front_end_dedup_shape``).
+    entries, in launches shaped by the batch (``sls_shape``,
+    ``front_end_shape``).
     Held bitwise against the per-entry kernels, for every weight:
     - at (B, G, L) whose bags no block divides evenly, L above a team's
       run (two metadata runs) and G above a CTA's teams;
@@ -579,6 +593,170 @@ def dedup_edge_checks(gen: torch.Generator) -> int:
                             t, h, x, rows3, own3, hot3, w3, s3, dedup=True),
                             fwant, f"fused_front_end_dedup == fused "
                                    f"{tag}{what}")
+                    n_cases += 1
+    return n_cases
+
+
+def per_entry_edge_checks(gen: torch.Generator) -> int:
+    """The per-entry kernels (``masked_sls``, ``fused_front_end``) skip a
+    masked entry, in launches shaped by the batch (``sls_shape``,
+    ``front_end_shape``).  Held against their plain versions (bitwise at
+    0/1 weights; within the SLS and dot tolerances otherwise), fused also
+    against the split composition of kernels (bitwise, every weight):
+    - at D in {16, 18, 64, 128}, fp32 and int8, L = 7 and L above a
+      team's run, batches no block divides, and bag counts on both sides
+      of ``WALK_MIN_BAGS_PER_SM`` per SM (where rows in flight and int8's
+      chunk width switch), the plain SLS (``owned=None``) too;
+    - with every entry masked, and with an empty hot tier;
+    - with rows of +-1e30 (int8: +-127 under a masked entry's scale of
+      1e28) at row 0 and under every masked entry of either tier (an
+      owned entry's row in the hot table, a hot entry's in the cold
+      table, a neither entry's in both): the kernels equal their results
+      on the unmodified tables, for every weight, and the plain versions
+      (which read row 0 at a factor of 0) at 0/1 weights;
+    - with NaN and +-inf in the same places (int8: a NaN scale under every
+      masked entry), where the plain versions' fmaf(0, inf, acc) gives
+      NaN: the kernels skip the masked entries, so their results are
+      finite, equal to those on the unmodified tables and to the
+      gather-once kernels' on the same non-finite tables."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sls as ksls
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n_cases = 0
+    A = 200                          # rows per entry kind (below)
+    V = H = 3 * A
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    walk = ksls.WALK_MIN_BAGS_PER_SM * n_sm
+    G8 = 8
+    shapes = [(1, 1, 3), (3, 5, 7), (37, 8, 7), (5, 26, 4), (37, 3, 33),
+              ((walk - 1) // G8, G8, 7), (-(-walk // G8), G8, 7),
+              (2053, 8, 7)]
+    for D in (16, 18, 64, 128):
+        for storage in ("fp32", "int8"):
+            if storage == "int8":
+                cold = torch.randint(-127, 128, (V, D), generator=gen,
+                                     device="cuda", dtype=torch.int8)
+            else:
+                cold = torch.randn((V, D), generator=gen, device="cuda")
+            hot = torch.randn((H, D), generator=gen, device="cuda")
+            row_scale = rand((V,), 1e-4, 2e-2)
+            # owned entries read rows [1, A), hot ones [A, 2A), entries
+            # of neither tier [2A, 3A); every row a masked entry of a
+            # tier can name, and row 0, holds +-1e30 in that tier
+            sign_c = torch.where(rand((V, D)) < 0.5, -1.0, 1.0)
+            sign_h = torch.where(rand((H, D)) < 0.5, -1.0, 1.0)
+            big_c, big_h = cold.clone(), hot.clone()
+            masked_c = torch.zeros(V, dtype=torch.bool, device="cuda")
+            masked_c[0] = True
+            masked_c[A:] = True
+            masked_h = torch.zeros(H, dtype=torch.bool, device="cuda")
+            masked_h[:A] = True
+            masked_h[2 * A:] = True
+            big_c[masked_c] = ((sign_c[masked_c] * 127).to(torch.int8)
+                               if storage == "int8"
+                               else sign_c[masked_c] * 1e30)
+            big_h[masked_h] = sign_h[masked_h] * 1e30
+            inf_or_nan = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf")], device="cuda")
+            bad_c, bad_h = cold.clone(), hot.clone()
+            if storage == "fp32":
+                bad_c[masked_c] = inf_or_nan[torch.randint(
+                    0, 3, (int(masked_c.sum()), D), generator=gen,
+                    device="cuda")]
+            bad_h[masked_h] = inf_or_nan[torch.randint(
+                0, 3, (int(masked_h.sum()), D), generator=gen,
+                device="cuda")]
+            cases = [(B, G, L, "random") for B, G, L in shapes]
+            cases += [(37, 8, 7, "all_masked"), (37, 8, 7, "empty_hot")]
+            for B, G, L, kind in cases:
+                N = B * G
+                u = rand((B, G, L))
+                kind_of = torch.where(u < 0.6, 0, torch.where(u < 0.85, 1, 2))
+                if kind == "all_masked":
+                    kind_of = torch.full_like(kind_of, 2)
+                elif kind == "empty_hot":
+                    kind_of = torch.where(kind_of == 1, 0, kind_of)
+                rows3 = ((rand((B, G, L)) ** 3 * (A - 1)).to(torch.int32)
+                         + 1 + kind_of.to(torch.int32) * A)
+                own3, hot3 = kind_of == 0, kind_of == 1
+                s3 = (torch.where(own3, row_scale[rows3], 1e28)
+                      if storage == "int8" else None)
+                x = torch.randn((B, D), generator=gen, device="cuda")
+                flat, own2, hot2 = (rows3.reshape(N, L), own3.reshape(N, L),
+                                    hot3.reshape(N, L))
+                s2 = None if s3 is None else s3.reshape(N, L)
+                bad_s3 = (None if s3 is None
+                          else torch.where(own3, s3, float("nan")))
+                bad_s2 = None if bad_s3 is None else bad_s3.reshape(N, L)
+                plans = {"cold": core_sls.dedup_plan(flat, own2, bad_s2),
+                         "hot": core_sls.dedup_plan(flat, hot2)}
+                for weighting in ("01", "general"):
+                    w3 = ((rand((B, G, L)) < 0.8).float()
+                          if weighting == "01" else rand((B, G, L), -2.0, 2.0))
+                    w2 = w3.reshape(N, L)
+                    tag = (f"D={D} {storage} B={B} G={G} L={L} {kind} "
+                           f"w={weighting}")
+                    # masked_sls, each tier, unmodified then +-1e30 and
+                    # non-finite tables
+                    for t, big, bad, m, s, bs, tier in (
+                            (cold, big_c, bad_c, own2, s2, bad_s2, "cold"),
+                            (hot, big_h, bad_h, hot2, None, None, "hot")):
+                        k = ops.masked_sls(t, flat, m, w2, s)
+                        p = ops.masked_sls(t, flat, m, w2, s, impl="torch")
+                        what = f"masked_sls {tier} {tag}"
+                        if weighting == "01":
+                            assert_equal(k, p, what)
+                        else:
+                            assert_close(k, p, sls_tol(t, flat, m, w2, s),
+                                         what)
+                        assert_equal(ops.masked_sls(big, flat, m, w2, s), k,
+                                     f"{what} +-1e30")
+                        if weighting == "01":
+                            assert_equal(ops.masked_sls(big, flat, m, w2, s,
+                                                        impl="torch"), k,
+                                         f"{what} +-1e30 plain")
+                        nf = ops.masked_sls(bad, flat, m, w2, bs)
+                        assert_equal(nf, k, f"{what} non-finite")
+                        assert_equal(ops.masked_sls_dedup(bad, plans[tier], m,
+                                                          w2), nf,
+                                     f"{what} non-finite == gather-once")
+                    if storage == "fp32":   # plain SLS: every entry kept
+                        k = ops.masked_sls(cold, flat, None, w2)
+                        p = ops.masked_sls(cold, flat, None, w2,
+                                           impl="torch")
+                        if weighting == "01":
+                            assert_equal(k, p, f"sls {tag}")
+                        else:
+                            assert_close(k, p, sls_tol(cold, flat, None, w2,
+                                                       None), f"sls {tag}")
+                    # fused_front_end: plain, split, and +-1e30 tables
+                    fk = ops.fused_front_end(cold, hot, x, rows3, own3, hot3,
+                                             w3, s3)
+                    split = ops.dot_interaction(torch.cat(
+                        [x[:, None],
+                         (ops.masked_sls(cold, flat, own2, w2, s2)
+                          + ops.masked_sls(hot, flat, hot2, w2)
+                          ).reshape(B, G, D)], 1))
+                    assert_equal(fk, split, f"fused == split {tag}")
+                    fp = ops.fused_front_end(cold, hot, x, rows3, own3, hot3,
+                                             w3, s3, impl="torch")
+                    assert_close(fk, fp, fused_tol(
+                        cold, hot, x, rows3, own3, hot3, w3, s3,
+                        weighting == "general"), f"fused vs plain {tag}")
+                    assert_equal(ops.fused_front_end(big_c, big_h, x, rows3,
+                                                     own3, hot3, w3, s3), fk,
+                                 f"fused +-1e30 {tag}")
+                    fnf = ops.fused_front_end(bad_c, bad_h, x, rows3, own3,
+                                              hot3, w3, bad_s3)
+                    assert_equal(fnf, fk, f"fused non-finite {tag}")
+                    assert_equal(core_sls.fused_front_end_dense(
+                        bad_c, bad_h, x, rows3, own3, hot3, w3, bad_s3,
+                        dedup=True), fnf,
+                        f"fused non-finite == gather-once {tag}")
                     n_cases += 1
     return n_cases
 
@@ -798,6 +976,44 @@ def check_scores(tag, runs):
               f"{tag} {name}: scores not finite in (0, 1)")
 
 
+def oob_checks(b, state, hb, tag: str) -> None:
+    """One batch-32 serve step with out-of-range and negative ids (past
+    the end, 2**31 - 2 as the reference's ``corrupt_oob`` fault sends, and
+    -1, -padded_rows, -padded_rows - 5) on the card, split and fused: it
+    completes with no device-side assert (a synchronize after it), the
+    kernel-path lookup equals the plain path's bitwise, fused == split
+    bitwise, and the scores are in (0, 1) and within 1e-5 of the plain
+    path's."""
+    eng = b.engine
+    R = eng.cfg.padded_rows
+    ids = torch.tensor([R, R + 1000, 2 ** 31 - 2, -1, -R, -R - 5],
+                       dtype=torch.int32, device="cuda")
+    sub = {k: v[:32].clone() for k, v in hb.items()}
+    flat_i = sub["indices"].view(-1)
+    flat_w = sub["weights"].view(-1)
+    pos = torch.arange(ids.numel(), device="cuda") * 37 % flat_i.numel()
+    flat_i[pos] = ids
+    flat_w[pos] = 1.0
+    lk = eng.lookup(state, sub["indices"], sub["weights"])
+    lp = eng.lookup(state, sub["indices"], sub["weights"], impl="torch")
+    torch.cuda.synchronize()
+    assert_equal(lk, lp, f"{tag}: out-of-range ids, lookup kernel vs plain")
+    out = {fe: b.step(fe)(state, sub) for fe in ("split", "fused")}
+    plain = b.step("split", impl="torch")(state, sub)
+    torch.cuda.synchronize()
+    assert_equal(out["fused"], out["split"],
+                 f"{tag}: out-of-range ids, fused vs split")
+    s = out["split"]
+    check(bool(torch.isfinite(s).all() and (s > 0).all() and (s < 1).all()),
+          f"{tag}: out-of-range ids, scores not finite in (0, 1)")
+    err = float((s - plain).abs().max())
+    check(err <= 1e-5, f"{tag}: out-of-range ids, kernel vs plain scores "
+                       f"differ by {err:.3e}")
+    print(f"{tag}: out-of-range ids {ids.tolist()} served at "
+          f"{eng.cfg.n_shards} shard(s), split and fused, no device assert; "
+          f"kernel vs plain score err {err:.2e}", flush=True)
+
+
 def slice_phase(timer: Timer):
     from repro_torch.configs import get_config
     from repro_torch.core import sls as core_sls
@@ -887,6 +1103,7 @@ def slice_phase(timer: Timer):
             lp = eng.lookup(state0, hb["indices"], hb["weights"],
                             impl="torch")
             assert_equal(lk, lp, f"{tag}: lookup kernel vs plain")
+            oob_checks(b, state0, hb, tag)
             loc, owned, is_hot, scale = eng._address(state0, hb["indices"])
             owned = owned[0]                       # one shard
             real = hb["weights"] != 0
@@ -1160,6 +1377,7 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
         check(e4 <= 1e-5, f"{tag} batch {bs}: tp={TP} vs one shard {e4:.3e}")
         print(f"{tag} batch {bs}: pond split vs fused max diff {e:.2e}; "
               f"tp={TP} vs one shard {e4:.2e}", flush=True)
+    oob_checks(b4, state4, hb, f"{tag} tp={TP}")
     # ---- dedup auto at 4 shards, primed from the stream's prefix
     b4.state = state4
     srv.prime_dedup_auto(b4, reqs)

@@ -10,8 +10,11 @@ three modes:
   * ``pond``   -- communicate then reduce (the paper's baseline): each
                   shard ships its raw rows, which are summed over shards
                   and then pooled; a fused front end pools them first;
-  * ``beacon`` -- the pifs datapath with tiering disabled (build the
-                  engine with ``hot_fraction=0`` and never promote pages).
+  * ``beacon`` -- the pifs datapath; the paper's BEACON has tiering
+                  disabled (an engine with ``hot_fraction=0`` that never
+                  promotes a page), which is the placement's business,
+                  not the mode's.  The serve CLI, as the reference's,
+                  gives beacon the same hot tier as every mode.
 
 Shards.  ``PagingConfig.n_shards`` = S is the reference's tp axis.  One
 device holds every shard: the cold tier is S equal slices of one tensor,
@@ -90,8 +93,8 @@ class PIFSEmbeddingEngine:
         ``dedup_staging_bytes`` the staging budget above which a signature
         falls back to the per-entry gather (the reference's 4 MiB).
         ``validate_ids`` makes lookups check ids against the padded
-        address space on the host and raise, instead of reading whatever
-        an out-of-range id addresses."""
+        address space on the host and raise, instead of serving the
+        clamped row that an out-of-range id addresses (:meth:`_address`)."""
         if dedup not in self.DEDUP_MODES:
             raise ValueError(f"unknown dedup {dedup!r}; "
                              f"expected one of {self.DEDUP_MODES}")
@@ -245,7 +248,7 @@ class PIFSEmbeddingEngine:
     # ---------------------------------------------------------------- lookup
     def _check_ids(self, indices: torch.Tensor) -> None:
         """Strict-mode guard: raise on ids outside the padded address
-        space (an out-of-range id would read the wrong row, or fault)."""
+        space (an out-of-range id would serve a clamped row)."""
         idx = indices.detach().cpu().numpy()
         bad = (idx < 0) | (idx >= self.cfg.padded_rows)
         if bad.any():
@@ -515,10 +518,12 @@ class PIFSEmbeddingEngine:
                 weights: Optional[torch.Tensor] = None) -> EngineState:
         """Add a batch to the page-access histogram (the paper's profiler).
         An entry counts 1 iff its weight (when given) is non-zero, so bucket
-        padding never skews the ranking; ids whose page lies outside the
-        table are dropped, as the reference's scatter drops them."""
+        padding never skews the ranking.  Pages index as the reference's
+        scatter does: a negative page wraps once (page -1 is the last), and
+        what is still outside the table is dropped."""
         c = self.cfg
         page = indices.reshape(-1).long() // c.page_size
+        page = torch.where(page < 0, page + c.num_pages, page)
         inc = torch.ones(page.shape, dtype=torch.float32, device=page.device)
         if weights is not None:
             inc = (weights.reshape(-1) != 0).to(torch.float32)
@@ -601,10 +606,18 @@ class PIFSEmbeddingEngine:
     def _address(self, state: EngineState, idx: torch.Tensor):
         """Each entry's storage row (local to its tier's slice), the
         per-shard ownership masks (n_shards, *idx.shape), the hot mask and
-        (int8) the page scale."""
-        ps = self.cfg.page_size
+        (int8) the page scale.
+
+        Any id is served, as the reference's gathers serve it: its page
+        wraps once if negative and is then clamped into the table; the
+        offset in the page is ``idx % ps``.  So an id past the end reads
+        a row of the last page, and nothing indexes out of bounds (which
+        on the card would be a device-side assert).  Clamping the page
+        into [-n, n) and then taking it mod n is that rule in two
+        elementwise operations."""
+        ps, n = self.cfg.page_size, self.cfg.num_pages
         idx = idx.long()
-        page = idx // ps
+        page = (idx // ps).clamp_(-n, n - 1).remainder_(n)
         shard = state.page_to_shard[page]
         local_row = (state.page_to_slot[page].long() * ps
                      + idx % ps).to(torch.int32)

@@ -66,9 +66,9 @@ __device__ __forceinline__ void accumulate(float* acc, float f, float* v,
 
 // The per-entry factor f = owned * w (owned in {0, 1}); the same product
 // the reference forms, so f is bitwise the reference's.
-__device__ __forceinline__ float entry_factor(bool has_mask, bool own,
-                                              const float* w, int64_t e) {
-  float f = has_mask ? (own ? 1.0f : 0.0f) : 1.0f;
+__device__ __forceinline__ float entry_factor(bool own, const float* w,
+                                              int64_t e) {
+  float f = own ? 1.0f : 0.0f;
   if (w != nullptr) f = __fmul_rn(f, __ldg(w + e));
   return f;
 }

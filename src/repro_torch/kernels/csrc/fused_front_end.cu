@@ -1,38 +1,39 @@
-// Fused DLRM front end: two-tier masked SLS -> features -> interaction.
+// Fused DLRM front end: two-tier masked SLS -> features -> interaction,
+// per entry and gather-once.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/sls.py:
+// fused_front_end replaces the Pallas TPU kernel src/repro/kernels/sls.py:
 // fused_front_end_pallas (_make_fused_front_end_kernel, emit="interact",
-// dedup=False).  The TPU grid (B/BB, G, L tiles) revisits one output block
-// in order; blocks on a GPU run in no order, so here one CTA owns a batch
-// tile of BB samples and loops over the G bags and the L entries itself.
-// BB is small (one bag per team of threads) so that many gathers are in
-// flight across the card.
+// dedup=False); fused_front_end_dedup replaces :623
+// fused_front_end_dedup_pallas (its pallas_call at :683), the same with
+// each tier's rows read through its dedup plan -- cold c_unique[c_slots[e]]
+// with its scale, hot h_unique[h_slots[e]] -- and no staging buffer
+// (gather_once.cuh).  The TPU grid (B/BB, G, L tiles) revisits one output
+// block in order; blocks on a GPU run in no order, so here one CTA owns a
+// batch tile of BB samples and loops over the G bags and the L entries
+// itself.
 //
-// Bound: bytes (the row gather, as in masked_sls.cu).  Design: per bag, the
-// cold and hot accumulators live in separate registers and run the same
-// fixed l-order fmaf steps as masked_sls.cu; cold + hot is written once into
-// a shared-memory (BB, F, D) feature tile with x in row 0, and the tile is
-// reduced by interact_tile, the device function dot_interaction.cu uses.
-// The pooled features never reach device memory, and the result equals
-// split (masked_sls per tier -> add -> dot_interaction) bit for bit.
-//
-// fused_front_end_dedup (below) replaces src/repro/kernels/sls.py:623
-// fused_front_end_dedup_pallas (its pallas_call at :683), a kernel of its
-// own (fused_front_end_dedup_kernel): one launch that reads each tier's
-// rows through its plan -- cold c_unique[c_slots[e]] with its scale, hot
-// h_unique[h_slots[e]] -- with no staging buffer (gather_once.cuh), writes
-// cold + hot (__fadd_rn) into the shared feature tile and calls
-// interact_tile, so it equals fused_front_end, and split, bit for bit.
 // Bound: bytes (each tier's distinct rows once, plus x and the triangle);
-// in practice latency, each bag's chain metadata -> slot's row id -> row.
-// Design: a team per bag takes its entries in runs, both tiers' metadata
-// in one round trip into shared memory, each tier's kept entries
-// compacted in l order, then two entries' cold and hot rows in flight
-// per lane; one CTA per tile of BB samples (sls.py:
-// front_end_dedup_shape).  Spreading a tile's bags over a cluster of CTAs
-// that pool into the first one's shared memory (so that batch 32 runs on
-// 128 SMs, not 32) was measured slower at every batch (PERF.md): at batch
-// 32 each bag's chain of loads is the time, not the SMs.
+// in practice latency, each bag's chain metadata -> row (through a plan:
+// metadata -> slot's row id -> row).  Design, one walk for both
+// (front_end_walk, the row sources template parameters): a team of threads
+// per bag takes its entries in runs, both tiers' metadata in one round
+// trip into shared memory, each tier's kept entries compacted in l order
+// (an entry is cold or hot, so each tier loads only its own rows), then U
+// rows in flight per lane: with a float32 cold tier one list of both
+// tiers' kept entries (cold, then hot), U = 4, or 8 below 16 bags per SM;
+// with an int8 cold tier two lists of U / 2 = 2 rows each (its rows stay
+// raw int4 chunks, the hot rows are floats).  The cold and hot
+// accumulators run the fixed l-order fmaf steps of masked_sls.cu apart,
+// and cold + hot (__fadd_rn) is written once into a shared-memory
+// (BB, F, D) feature tile with x in row 0, which interact_tile -- the
+// device function dot_interaction.cu uses -- reduces.  The pooled
+// features never reach device memory, and the result equals split
+// (masked_sls per tier -> add -> dot_interaction) bit for bit.  One CTA per
+// tile of BB samples, a CTA per sample at small batch (sls.py:
+// front_end_shape).  Spreading a tile's bags over a cluster of CTAs that
+// pool into the first one's shared memory (so that batch 32 runs on 128
+// SMs, not 32) was measured slower at every batch (PERF.md): at batch 32
+// each bag's chain of loads is the time, not the SMs.
 //
 // fused_partial_pool and fused_partial_pool_dedup (below) replace
 // src/repro/kernels/sls.py:fused_partial_pool_pallas and
@@ -58,12 +59,12 @@
 //   accumulator acc_c[s] in registers (the shard-group size NSH is a
 //   template parameter: 1, 2, 4 or 8; more shards take one grid row per
 //   group of 8, the hot tier and x in group 0 alone).  The hot
-//   accumulator runs as in the fused kernel: every entry, f = hit * w.
+//   accumulator takes every entry, f = hit * w.
 // - Below 16 bags per SM (the wrapper's shard_group) each shard takes a
 //   grid row of its own instead: a small batch leaves the card idle, and a
 //   warp's chain of loads is then the time.
 // A shard that does not own an entry skips it, where the plain versions
-// (and masked_sls) add fmaf(0, v, acc) (f = owned * w = +-0): on finite
+// add fmaf(0, v, acc) (f = owned * w = +-0): on finite
 // rows the two agree, because f * v is +-0, acc + +-0 == acc, and an
 // accumulator that starts at +0 turns to -0 only by underflow, which ==
 // comparisons treat as +0.  So the tiles equal the plain version's, and
@@ -74,126 +75,41 @@
 // (dedup_stage.cuh, dedup_stage_tiers_kernel: the cold plan's live slots,
 // then the hot plan's), then this kernel reads them through the first
 // owner's cold slot and the hot slot: two launches per call.
-#include <algorithm>
-
 #include "common.cuh"
 #include "dedup_stage.cuh"
 #include "gather_once.cuh"
 #include "interaction.cuh"
 
-template <typename T, int VEC>
-__global__ void fused_front_end_kernel(
+constexpr int FE_THREADS = 256;   // threads per CTA, at most
+
+// Registers per thread for 4 CTAs of FE_THREADS per SM, or 2 where a lane
+// holds 8 rows in flight or int8's 16-code chunks (16 floats of the hot
+// tier per row).
+template <int VEC, int U>
+constexpr int fe_min_blocks() {
+  return VEC >= 16 || U >= 8 ? 2 : 4;
+}
+
+// The walk of both fused front ends: one CTA per feature tile of BB
+// samples (blockIdx.x); its teams walk the tile's BB * G bags, one bag per
+// team at a time, each run's metadata of both tiers in one round trip
+// (cold rows and scales from csrc, hot rows from hsrc), and write each
+// pooled row cold + hot into the tile; then x as row 0 and interact_tile.
+// A lane holds U rows in flight.  With a float32 cold tier both tiers'
+// kept entries share one list (the cold ones in l order, then the hot
+// ones), so the U rows are whichever the bag has, mostly cold; an int8
+// cold tier keeps two lists of U / 2 (its rows stay raw int4 chunks, the
+// hot rows are floats).  Registers capped for 4 CTAs per SM at U = 4 (2 at
+// U = 8 or int8's 16-code chunks): more CTAs per SM overlap one tile's
+// interaction with other tiles' loads (PERF.md).
+template <typename T, int VEC, int U, class ColdSrc, class HotSrc>
+__device__ __forceinline__ void front_end_walk(
     const T* __restrict__ cold, const float* __restrict__ hot,
-    const float* __restrict__ x, const int32_t* __restrict__ rows,
+    const float* __restrict__ x, const ColdSrc& csrc, const HotSrc& hsrc,
     const uint8_t* __restrict__ owned, const uint8_t* __restrict__ is_hot,
-    const float* __restrict__ w, const float* __restrict__ scales,
-    float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
-    int team) {
-  extern __shared__ float tile[];
-  const int F = G + 1;
-  const int lds = D + 1;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * BB;
-  const int nb = static_cast<int>(min(static_cast<int64_t>(BB), B - b0));
-
-  // feature row 0 of each sample: x
-  for (int e = threadIdx.x; e < nb * D; e += blockDim.x) {
-    const int s = e / D;
-    const int d = e - s * D;
-    tile[s * F * lds + d] = __ldg(x + b0 * D + e);
-  }
-
-  // rows 1..G: pooled bags, cold and hot accumulated apart
-  const int chunks = D / VEC;
-  const int teams = blockDim.x / team;
-  const int lane = threadIdx.x % team;
-  for (int bag = threadIdx.x / team; bag < nb * G; bag += teams) {
-    const int s = bag / G;
-    const int g = bag - s * G;
-    const int64_t e0 = ((b0 + s) * G + g) * L;
-    for (int c = lane; c < chunks; c += team) {
-      float acc_c[VEC], acc_h[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc_c[k] = acc_h[k] = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const int64_t e = e0 + l;
-        const bool own = owned[e] != 0;
-        const bool hit = is_hot[e] != 0;
-        const float fc = entry_factor(true, own, w, e);
-        const float fh = entry_factor(true, hit, w, e);
-        float vc[VEC], vh[VEC];
-        const int64_t r = __ldg(rows + e);
-        load_row<T, VEC>(cold + (own ? r : 0) * D + c * VEC, vc);
-        load_row<float, VEC>(hot + (hit ? r : 0) * D + c * VEC, vh);
-        accumulate<VEC>(acc_c, fc, vc,
-                        scales == nullptr ? nullptr : scales + e);
-        accumulate<VEC>(acc_h, fh, vh, nullptr);
-      }
-      float* dst = tile + (s * F + g + 1) * lds;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        dst[c * VEC + k] = __fadd_rn(acc_c[k], acc_h[k]);
-    }
-  }
-  __syncthreads();
-  interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
-}
-
-template <typename T, int VEC>
-static int launch(const void* cold, const float* hot, const float* x,
-                  const int32_t* rows, const uint8_t* owned,
-                  const uint8_t* is_hot, const float* w, const float* scales,
-                  float* out, int B, int G, int L, int D, int P, int max_bb,
-                  cudaStream_t stream) {
-  const int threads = 256;
-  const int team = team_size(D / VEC);
-  // A team walks its bags' entries one gather after another, so the
-  // kernel is bound by gather latency unless many teams are in flight:
-  // give each team one bag (BB * G <= teams), up to the caller's cap.
-  const int BB = std::max(1, std::min(max_bb, (threads / team) / G));
-  const size_t smem =
-      static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
-  // above 48 KB a block gets dynamic shared memory only after this opt-in;
-  // without it the launch is refused
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_front_end_kernel<T, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (B + BB - 1) / BB;
-  if (blocks > 0) {
-    fused_front_end_kernel<T, VEC><<<blocks, threads, smem, stream>>>(
-        static_cast<const T*>(cold), hot, x, rows, owned, is_hot, w, scales,
-        out, B, G, L, D, P, BB, team);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-constexpr int FE_DEDUP_THREADS = 256;   // fused_front_end_dedup CTA, at most
-constexpr int FE_DEDUP_U = 2;           // kept entries per tier in flight
-
-// The gather-once fused front end: one CTA per feature tile of BB samples
-// (blockIdx.x); its teams walk the tile's BB * G bags, one bag per team at
-// a time, and write each pooled row cold + hot into the tile; then x as
-// row 0 and interact_tile.  Two entries per tier in flight and registers
-// capped for 4 CTAs per SM (2 for int8's 16-code chunks) ran faster than
-// four in flight uncapped (2 CTAs per SM): more CTAs per SM overlap one
-// tile's interaction with other tiles' loads (PERF.md).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(FE_DEDUP_THREADS, VEC >= 16 ? 2 : 4)
-    fused_front_end_dedup_kernel(
-        const T* __restrict__ cold, int64_t Vc, const float* __restrict__ hot,
-        int64_t Vh, const float* __restrict__ x,
-        const int32_t* __restrict__ cuniq, const float* __restrict__ cscales,
-        const int32_t* __restrict__ huniq, const int32_t* __restrict__ cslots,
-        const int32_t* __restrict__ hslots, const uint8_t* __restrict__ owned,
-        const uint8_t* __restrict__ is_hot, const float* __restrict__ w,
-        float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
-        int team) {
-  extern __shared__ float tile[];
-  __shared__ PlanEntry meta_c[FE_DEDUP_THREADS], meta_h[FE_DEDUP_THREADS];
+    const float* __restrict__ w, float* __restrict__ out, int B, int G,
+    int L, int D, int P, int BB, int team, float* tile, PlanEntry* meta) {
   constexpr bool kScaled = sizeof(T) == 1;   // int8 cold rows
-  constexpr int U = FE_DEDUP_U;
   const int F = G + 1;
   const int lds = D + 1;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * BB;
@@ -207,8 +123,8 @@ __global__ void __launch_bounds__(FE_DEDUP_THREADS, VEC >= 16 ? 2 : 4)
   const int teams = blockDim.x / team;
   const int lane = threadIdx.x % team;
   const int chunks = D / VEC;
-  PlanEntry* tc = meta_c + (threadIdx.x - lane);
-  PlanEntry* th = meta_h + (threadIdx.x - lane);
+  // a team's 2 * team entries of metadata: cold then hot
+  PlanEntry* tm = meta + 2 * (threadIdx.x - lane);
   // the same trip counts for every lane of a warp (team_compact)
   for (int q0 = 0; q0 < nb * G; q0 += teams) {
     const int q = q0 + static_cast<int>(threadIdx.x) / team;
@@ -226,24 +142,54 @@ __global__ void __launch_bounds__(FE_DEDUP_THREADS, VEC >= 16 ? 2 : 4)
         const int n = min(team, L - l0);
         const bool mine = valid && lane < n;
         const int64_t e = e0 + l0 + lane;
-        const float f = mine ? entry_factor(true, true, w, e) : 0.0f;
+        const float f = mine ? entry_factor(true, w, e) : 0.0f;
         __syncwarp();
         PlanEntry pc, ph;
-        const bool kc = plan_load<kScaled>(mine, e, f, owned, cslots, cuniq,
-                                           cscales, Vc, D, &pc);
-        const bool kh = plan_load<false>(mine, e, f, is_hot, hslots, huniq,
-                                         nullptr, Vh, D, &ph);
-        const int mc = plan_keep(kc, pc, lane, team, tc);
-        const int mh = plan_keep(kh, ph, lane, team, th);
-        __syncwarp();
-        if (!active) continue;
-        for (int j0 = 0; j0 < max(mc, mh); j0 += U) {
-          RowChunk<T, VEC> rc[U];
-          RowChunk<float, VEC> rh[U];
-          gather_kept<T, VEC, U>(cold, tc, j0, mc, c, rc);
-          gather_kept<float, VEC, U>(hot, th, j0, mh, c, rh);
-          add_kept<T, VEC, U, kScaled>(tc, j0, mc, rc, acc_c);
-          add_kept<float, VEC, U, false>(th, j0, mh, rh, acc_h);
+        const bool kc = plan_load<kScaled>(mine, e, f, owned, csrc, D, &pc);
+        const bool kh = plan_load<false>(mine, e, f, is_hot, hsrc, D, &ph);
+        if constexpr (!kScaled) {
+          // one list: kept cold entries at [0, mc), hot at [mc, mc + mh)
+          int pc_pos, ph_pos;
+          const int mc = team_compact(kc, lane, team, &pc_pos);
+          const int mh = team_compact(kh, lane, team, &ph_pos);
+          if (kc) tm[pc_pos] = pc;
+          if (kh) tm[mc + ph_pos] = ph;
+          __syncwarp();
+          if (!active) continue;
+          const int m = mc + mh;
+          for (int j0 = 0; j0 < m; j0 += U) {
+            RowChunk<float, VEC> r[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              if (j0 + u < m)
+                r[u].load((j0 + u < mc ? cold : hot) + tm[j0 + u].off +
+                          c * VEC);
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              if (j0 + u < m) {
+                float v[VEC];
+                r[u].to_float(v);
+                if (j0 + u < mc)
+                  accumulate<VEC>(acc_c, tm[j0 + u].f, v, nullptr);
+                else
+                  accumulate<VEC>(acc_h, tm[j0 + u].f, v, nullptr);
+              }
+            }
+          }
+        } else {
+          constexpr int UT = U / 2;          // rows in flight per tier
+          const int mc = plan_keep(kc, pc, lane, team, tm);
+          const int mh = plan_keep(kh, ph, lane, team, tm + team);
+          __syncwarp();
+          if (!active) continue;
+          for (int j0 = 0; j0 < max(mc, mh); j0 += UT) {
+            RowChunk<T, VEC> rc[UT];
+            RowChunk<float, VEC> rh[UT];
+            gather_kept<T, VEC, UT>(cold, tm, j0, mc, c, rc);
+            gather_kept<float, VEC, UT>(hot, tm + team, j0, mh, c, rh);
+            add_kept<T, VEC, UT, kScaled>(tm, j0, mc, rc, acc_c);
+            add_kept<float, VEC, UT, false>(tm + team, j0, mh, rh, acc_h);
+          }
         }
       }
       if (active) {
@@ -257,34 +203,117 @@ __global__ void __launch_bounds__(FE_DEDUP_THREADS, VEC >= 16 ? 2 : 4)
   interact_tile(tile, nb, F, D, lds, P, 0, out + b0 * P);
 }
 
-// One CTA per tile of BB samples; threads a multiple of 32 and of the team.
+// The per-entry fused front end: entry e's row is rows[e] in either tier.
+template <typename T, int VEC, int U>
+__global__ void __launch_bounds__(FE_THREADS, fe_min_blocks<VEC, U>())
+    fused_front_end_kernel(
+        const T* __restrict__ cold, const float* __restrict__ hot,
+        const float* __restrict__ x, const int32_t* __restrict__ rows,
+        const uint8_t* __restrict__ owned, const uint8_t* __restrict__ is_hot,
+        const float* __restrict__ w, const float* __restrict__ scales,
+        float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
+        int team) {
+  extern __shared__ float tile[];
+  __shared__ PlanEntry meta[2 * FE_THREADS];
+  front_end_walk<T, VEC, U>(cold, hot, x, PerEntry{rows, scales},
+                            PerEntry{rows, nullptr}, owned, is_hot, w, out, B,
+                            G, L, D, P, BB, team, tile, meta);
+}
+
+// The gather-once fused front end: each tier's rows through its plan.
+template <typename T, int VEC, int U>
+__global__ void __launch_bounds__(FE_THREADS, fe_min_blocks<VEC, U>())
+    fused_front_end_dedup_kernel(
+        const T* __restrict__ cold, int64_t Vc, const float* __restrict__ hot,
+        int64_t Vh, const float* __restrict__ x,
+        const int32_t* __restrict__ cuniq, const float* __restrict__ cscales,
+        const int32_t* __restrict__ huniq, const int32_t* __restrict__ cslots,
+        const int32_t* __restrict__ hslots, const uint8_t* __restrict__ owned,
+        const uint8_t* __restrict__ is_hot, const float* __restrict__ w,
+        float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
+        int team) {
+  extern __shared__ float tile[];
+  __shared__ PlanEntry meta[2 * FE_THREADS];
+  front_end_walk<T, VEC, U>(
+      cold, hot, x, ThroughPlan{cslots, cuniq, cscales, Vc},
+      ThroughPlan{hslots, huniq, nullptr, Vh}, owned, is_hot, w, out, B, G,
+      L, D, P, BB, team, tile, meta);
+}
+
+// Check the wrapper's shape (threads a multiple of 32 and of the team, at
+// most FE_THREADS; BB >= 1) and opt the kernel into the tile's dynamic
+// shared memory: the static metadata (2 * FE_THREADS PlanEntry) counts
+// against the 48 KB a block gets without the opt-in.  Returns the tile's
+// bytes, or -1 with *err set.
+template <typename K>
+static int64_t front_end_smem(K kernel, int G, int D, int vec, int BB,
+                              int threads, int* err) {
+  const int team = team_size(D / vec);
+  *err = 0;
+  if (threads % 32 != 0 || threads > FE_THREADS || threads % team || BB < 1) {
+    *err = static_cast<int>(cudaErrorInvalidValue);
+    return -1;
+  }
+  const size_t smem =
+      static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
+  if (smem + 2 * FE_THREADS * sizeof(PlanEntry) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      *err = static_cast<int>(e);
+      return -1;
+    }
+  }
+  return static_cast<int64_t>(smem);
+}
+
+// One CTA per tile of BB samples, the kernel at U = inflight rows in flight
+// per lane: k4, or k8 (given for a float32 cold tier only).
+template <typename K, typename... Args>
+static int launch_tiles(K k4, K k8, int inflight, int B, int G, int D,
+                        int vec, int BB, int threads, cudaStream_t stream,
+                        Args... args) {
+  if (inflight != 4 && (inflight != 8 || k8 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K kernel = inflight == 8 ? k8 : k4;
+  int err;
+  const int64_t smem = front_end_smem(kernel, G, D, vec, BB, threads, &err);
+  if (smem < 0) return err;
+  kernel<<<(B + BB - 1) / BB, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+static int launch_front_end(const void* cold, const float* hot,
+                            const float* x, const int32_t* rows,
+                            const uint8_t* owned, const uint8_t* is_hot,
+                            const float* w, const float* scales, float* out,
+                            int B, int G, int L, int D, int BB, int threads,
+                            int inflight, cudaStream_t stream) {
+  decltype(&fused_front_end_kernel<T, VEC, 4>) k8 = nullptr;
+  if constexpr (sizeof(T) == 4) k8 = fused_front_end_kernel<T, VEC, 8>;
+  return launch_tiles(fused_front_end_kernel<T, VEC, 4>, k8, inflight, B, G,
+                      D, VEC, BB, threads, stream,
+                      static_cast<const T*>(cold), hot, x, rows, owned,
+                      is_hot, w, scales, out, B, G, L, D, G * (G + 1) / 2,
+                      BB, team_size(D / VEC));
+}
+
 template <typename T, int VEC>
 static int launch_front_end_dedup(
     const T* cold, int64_t Vc, const float* hot, int64_t Vh, const float* x,
     const int32_t* cuniq, const float* cscales, const int32_t* huniq,
     const int32_t* cslots, const int32_t* hslots, const uint8_t* owned,
     const uint8_t* is_hot, const float* w, float* out, int B, int G, int L,
-    int D, int BB, int threads, cudaStream_t stream) {
-  const int team = team_size(D / VEC);
-  if (threads % 32 != 0 || threads > FE_DEDUP_THREADS || threads % team ||
-      BB < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int P = G * (G + 1) / 2;
-  const size_t smem =
-      static_cast<size_t>(BB) * (G + 1) * (D + 1) * sizeof(float);
-  auto kernel = fused_front_end_dedup_kernel<T, VEC>;
-  // the static metadata (2 * FE_DEDUP_THREADS PlanEntry) counts against the
-  // 48 KB a block gets without the opt-in
-  if (smem + 2 * FE_DEDUP_THREADS * sizeof(PlanEntry) > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<(B + BB - 1) / BB, threads, smem, stream>>>(
-      cold, Vc, hot, Vh, x, cuniq, cscales, huniq, cslots, hslots, owned,
-      is_hot, w, out, B, G, L, D, P, BB, team);
-  return static_cast<int>(cudaGetLastError());
+    int D, int BB, int threads, int inflight, cudaStream_t stream) {
+  decltype(&fused_front_end_dedup_kernel<T, VEC, 4>) k8 = nullptr;
+  if constexpr (sizeof(T) == 4) k8 = fused_front_end_dedup_kernel<T, VEC, 8>;
+  return launch_tiles(fused_front_end_dedup_kernel<T, VEC, 4>, k8, inflight,
+                      B, G, D, VEC, BB, threads, stream, cold, Vc, hot, Vh,
+                      x, cuniq, cscales, huniq, cslots, hslots, owned, is_hot,
+                      w, out, B, G, L, D, G * (G + 1) / 2, BB,
+                      team_size(D / VEC));
 }
 
 // One entry of a team's current run, as the partial pool's row phase reads
@@ -382,8 +411,8 @@ __global__ void __launch_bounds__(POOL_THREADS) partial_pool_kernel(
         const int first = m ? __ffs(m) - 1 : 0;
         PoolEntry p;
         p.owners = m;
-        p.fc = entry_factor(true, true, w, e);
-        p.fh = entry_factor(true, hit, w, e);
+        p.fc = entry_factor(true, w, e);
+        p.fh = entry_factor(hit, w, e);
         p.scale = kScaled ? __ldg(scales + e) : 1.0f;
         if constexpr (DEDUP) {
           // the first owner's slot; slot 0 (always staged) for nobody
@@ -512,17 +541,20 @@ static int launch_partial(const void* cold, const float* hot, const float* x,
 }
 
 // cold (Vc, D) float32 or int8 (itemsize 4 / 1); hot (Vh, D) float32;
-// x (B, D) float32; rows (B, G, L) int32; owned, is_hot (B, G, L) bool;
-// w, scales (B, G, L) float32 or null; out (B, P) float32, P = G(G+1)/2.
-// max_bb caps the samples per CTA (the caller keeps max_bb (G+1)(D+1) 4 B
-// within shared memory).
-extern "C" int fused_front_end(const void* cold, int itemsize, int vec16,
+// x (B, D) float32; rows (B, G, L) int32 rows of either tier; owned,
+// is_hot (B, G, L) bool; w (B, G, L) float32 or null; scales (B, G, L)
+// float32, given exactly for an int8 cold tier; out (B, P) float32,
+// P = G(G+1)/2.  vec: row elements per lane (1; 4, a 16-byte float32 chunk
+// or 4 int8 codes; 16 int8 codes), BB samples per CTA, threads per CTA
+// and inflight rows in flight per lane (4, or 8 with a float32 cold tier)
+// -- the wrapper's choice (sls.py: front_end_shape).
+extern "C" int fused_front_end(const void* cold, int itemsize, int vec,
                                const void* hot, const void* x,
                                const void* rows, const void* owned,
                                const void* is_hot, const void* w,
                                const void* scales, void* out, int B, int G,
-                               int L, int D, int max_bb, void* stream) {
-  const int P = G * (G + 1) / 2;
+                               int L, int D, int BB, int threads,
+                               int inflight, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
@@ -532,18 +564,15 @@ extern "C" int fused_front_end(const void* cold, int itemsize, int vec16,
   auto wf = static_cast<const float*>(w);
   auto sc = static_cast<const float*>(scales);
   auto o = static_cast<float*>(out);
-  if (itemsize == 4) {
-    return vec16 ? launch<float, 4>(cold, h, xf, r, m, hm, wf, sc, o, B, G,
-                                    L, D, P, max_bb, s)
-                 : launch<float, 1>(cold, h, xf, r, m, hm, wf, sc, o, B, G,
-                                    L, D, P, max_bb, s);
-  }
-  if (itemsize == 1) {
-    return vec16 ? launch<int8_t, 16>(cold, h, xf, r, m, hm, wf, sc, o, B,
-                                      G, L, D, P, max_bb, s)
-                 : launch<int8_t, 1>(cold, h, xf, r, m, hm, wf, sc, o, B, G,
-                                     L, D, P, max_bb, s);
-  }
+#define FE(T, VEC)                                                          \
+  launch_front_end<T, VEC>(cold, h, xf, r, m, hm, wf, sc, o, B, G, L, D, BB, \
+                           threads, inflight, s)
+  if (itemsize == 4 && vec == 4) return FE(float, 4);
+  if (itemsize == 4 && vec == 1) return FE(float, 1);
+  if (itemsize == 1 && vec == 16) return FE(int8_t, 16);
+  if (itemsize == 1 && vec == 4) return FE(int8_t, 4);
+  if (itemsize == 1 && vec == 1) return FE(int8_t, 1);
+#undef FE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -551,14 +580,13 @@ extern "C" int fused_front_end(const void* cold, int itemsize, int vec16,
 // x (B, D) float32; c_/h_uniq (U,) int32 row per slot (one dedup plan per
 // tier), c_scales (U,) float32, given exactly for an int8 cold tier;
 // c_/h_slots, owned, is_hot (B, G, L); w (B, G, L) or null; out (B, P)
-// float32.  vec (as for masked_sls_dedup), BB samples per CTA and threads
-// per CTA are the wrapper's choice (sls.py: front_end_dedup_shape).
+// float32.  vec, BB, threads and inflight as for fused_front_end.
 extern "C" int fused_front_end_dedup(
     const void* cold, int itemsize, int64_t Vc, int vec, const void* hot,
     int64_t Vh, const void* x, const void* c_uniq, const void* c_scales,
     const void* h_uniq, const void* c_slots, const void* h_slots,
     const void* owned, const void* is_hot, const void* w, void* out, int B,
-    int G, int L, int D, int BB, int threads, void* stream) {
+    int G, int L, int D, int BB, int threads, int inflight, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
@@ -574,7 +602,7 @@ extern "C" int fused_front_end_dedup(
 #define FE_DEDUP(T, VEC)                                                    \
   launch_front_end_dedup<T, VEC>(static_cast<const T*>(cold), Vc, h, Vh, xf, \
                                  cu, cs, hu, csl, hsl, m, hm, wf, o, B, G, L, \
-                                 D, BB, threads, s)
+                                 D, BB, threads, inflight, s)
   if (itemsize == 4 && vec == 4) return FE_DEDUP(float, 4);
   if (itemsize == 4 && vec == 1) return FE_DEDUP(float, 1);
   if (itemsize == 1 && vec == 16) return FE_DEDUP(int8_t, 16);

@@ -1,29 +1,33 @@
-// Reading through a dedup plan: the device half of the gather-once kernels
-// masked_sls_dedup (masked_sls.cu) and fused_front_end_dedup
-// (fused_front_end.cu).
-//
+// The walk of a team of threads over its bags' entries, shared by the
+// per-entry kernels masked_sls (masked_sls.cu) and fused_front_end
+// (fused_front_end.cu) and their gather-once variants masked_sls_dedup and
+// fused_front_end_dedup.  They differ only in where entry e's row and
+// scale come from (the row source):
+//   PerEntry     row idx[e], scale scales[e];
+//   ThroughPlan  row table[min(unique_rows[slots[e]], V - 1)], scale
+//                unique_scales[slots[e]] -- the gather-once kernels.
 // On the TPU the gather-once kernels first copy each unique row into VMEM
 // and then accumulate from there.  On Hopper the 50 MB L2 already plays
 // that part: duplicates of a row share one slot of the plan, hence one
 // address, and every gather after the first hits in L2.  So these kernels
-// keep the plan and drop the staging: entry e's row is
-//   table[min(unique_rows[slots[e]], V - 1)]  (int8: * unique_scales[slot],
-//   rounded on its own)
-// -- the exact value the stage used to write -- and the accumulate sees the
-// operands of the per-entry kernels, in the same order: one launch, no
-// float32 staging round trip through device memory.
+// keep the plan and drop the staging: the accumulate sees the operands of
+// the per-entry kernels, in the same order: one launch, no float32
+// staging round trip through device memory.
 //
 // A team of threads walks one bag (a lane per 16-byte chunk of D), taking
 // its entries in runs of `team`: in one round trip lane j reads entry j's
-// mask, slot and weight and then its slot's row and scale; the team keeps
-// the owned entries, compacted in l order, in shared memory
-// (plan_load, plan_keep); then every lane gathers its chunk of the rows of
-// several kept entries at a time (gather_kept) and accumulates them in l
-// order (add_kept).  A non-owned entry is
-// skipped where the per-entry kernels add fmaf(+-0, v, acc): on finite
-// rows the two agree (f * v is +-0 and acc + +-0 == acc; an accumulator
-// that starts at +0 turns to -0 only by underflow, which == comparisons
-// treat as +0), so the result equals the per-entry kernel's bit for bit.
+// mask, weight, row and scale (through the plan: its slot, then the
+// slot's row and scale); the team keeps the owned entries, compacted in l
+// order, in shared memory (plan_load, plan_keep); then every lane gathers
+// its chunk of the rows of several kept entries at a time (gather_kept)
+// and accumulates them in l order (add_kept).  A non-owned entry is
+// skipped where the plain versions (and the JAX reference) add
+// fmaf(+-0, v, acc) -- f = owned * w = +-0 times row 0, or the plan's
+// sentinel row: on finite rows the two agree (f * v is +-0 and
+// acc + +-0 == acc; an accumulator that starts at +0 turns to -0 only by
+// underflow, which == comparisons treat as +0), so the result equals the
+// plain version's bit for bit.  On a non-finite row under a masked entry
+// the plain versions give NaN (0 * inf) and the kernels do not read it.
 #pragma once
 #include "common.cuh"
 
@@ -57,8 +61,8 @@ struct RowChunk<int8_t, 16> {
 };
 
 // A kept entry of a team's current run: the element offset of its row, its
-// factor f = owned * w (= w: only owned entries are kept) and its slot's
-// dequant scale (1 where the table is float32).
+// factor f = owned * w (= w: only owned entries are kept) and its dequant
+// scale (1 where the table is float32).
 struct __align__(16) PlanEntry {
   int64_t off;
   float f;
@@ -79,25 +83,47 @@ __device__ __forceinline__ int team_compact(bool keep, int lane, int team,
   return __popc(mine);
 }
 
+// Row sources: entry e's row of the table and its dequant scale.  SCALED:
+// an int8 table, whose rows carry a scale (1 otherwise).
+struct PerEntry {
+  const int32_t* idx;      // (N, L) rows
+  const float* scales;     // (N, L), given when SCALED
+  template <bool SCALED>
+  __device__ __forceinline__ int64_t row(int64_t e, float* scale) const {
+    *scale = SCALED ? __ldg(scales + e) : 1.0f;
+    return __ldg(idx + e);
+  }
+};
+
+struct ThroughPlan {
+  const int32_t* slots;    // (N, L) slot per entry
+  const int32_t* uniq;     // row per slot, sentinel-padded
+  const float* uscales;    // scale per slot, given when SCALED
+  int64_t V;               // table rows: the clamp
+  template <bool SCALED>
+  __device__ __forceinline__ int64_t row(int64_t e, float* scale) const {
+    const int32_t u = __ldg(slots + e);
+    *scale = SCALED ? __ldg(uscales + u) : 1.0f;
+    return min(static_cast<int64_t>(__ldg(uniq + u)), V - 1);
+  }
+};
+
 // One run of one tier, in two steps so that a caller with two tiers has
 // both tiers' loads in flight before either ballot.  plan_load: lane j
-// (mine: j < the run's length, on a valid bag) reads entry e's mask and
-// slot, then the slot's row (clamped into the table, as the stage clamped
-// it) and scale, into *p; returns whether the entry is kept.  plan_keep:
-// the kept entries land in tm[0, m) in l order; returns m.  f is the
-// entry's factor w (or 1).
-template <bool SCALED>
-__device__ __forceinline__ bool plan_load(
-    bool mine, int64_t e, float f, const uint8_t* __restrict__ mask,
-    const int32_t* __restrict__ slots, const int32_t* __restrict__ uniq,
-    const float* __restrict__ uscales, int64_t V, int D, PlanEntry* p) {
+// (mine: j < the run's length, on a valid bag) reads entry e's mask (none:
+// every entry kept) and its row and scale from the source into *p;
+// returns whether the entry is kept.  plan_keep: the kept entries land in
+// tm[0, m) in l order; returns m.  f is the entry's factor w (or 1).
+template <bool SCALED, class Src>
+__device__ __forceinline__ bool plan_load(bool mine, int64_t e, float f,
+                                          const uint8_t* __restrict__ mask,
+                                          const Src& src, int D,
+                                          PlanEntry* p) {
   bool keep = false;
   if (mine) {
-    keep = __ldg(mask + e) != 0;
-    const int32_t u = __ldg(slots + e);
-    p->off = min(static_cast<int64_t>(__ldg(uniq + u)), V - 1) * D;
+    keep = mask == nullptr || __ldg(mask + e) != 0;
+    p->off = src.template row<SCALED>(e, &p->scale) * D;
     p->f = f;
-    p->scale = SCALED ? __ldg(uscales + u) : 1.0f;
   }
   return keep;
 }

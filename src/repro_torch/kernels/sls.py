@@ -1,25 +1,24 @@
 """Wrappers of the CUDA SLS kernels: check inputs, launch, count launches.
 
-* ``masked_sls`` -- ``csrc/masked_sls.cu``; replaces the Pallas TPU kernel
-  ``repro/kernels/sls.py:_sls_call`` (``masked_sls_pallas`` and, with no
-  mask, ``sls_pallas``).  Bound by bytes: one gathered row per pooling
-  entry.  Design: a team of threads per bag, 16-byte row loads, the
-  accumulator in registers (see the source's header).
-* ``fused_front_end`` -- ``csrc/fused_front_end.cu``; replaces
-  ``repro/kernels/sls.py:fused_front_end_pallas``.  Bound by bytes (the
-  same gather); one CTA per batch tile pools both tiers into a
+* ``masked_sls`` and ``masked_sls_dedup`` -- ``csrc/masked_sls.cu``; they
+  replace the Pallas TPU kernels ``repro/kernels/sls.py:_sls_call``
+  (``masked_sls_pallas`` and, with no mask, ``sls_pallas``) and
+  ``masked_sls_dedup_pallas``.  Bound by bytes (each distinct row once),
+  in practice by each bag's chain of metadata -> row loads (through the
+  dedup plan: metadata -> row id -> row).  One walk for both, the row
+  source a template parameter (``csrc/gather_once.cuh``): a team of
+  threads per bag stages a run's metadata in shared memory, keeps the
+  owned entries and holds several rows in flight, in launches shaped by
+  :func:`sls_shape`.  The gather-once kernel reads each row through the
+  plan, ``unique_rows[slots[e]]``, with no staging buffer: duplicates
+  share one address and the L2 serves them.
+* ``fused_front_end`` and ``fused_front_end_dedup`` --
+  ``csrc/fused_front_end.cu``; they replace
+  ``repro/kernels/sls.py:fused_front_end_pallas`` and
+  ``fused_front_end_dedup_pallas``.  Bound by bytes (the same gather);
+  one CTA per batch tile pools both tiers with the same walk into a
   shared-memory feature tile and runs the interaction on it, so the pooled
-  features never reach device memory.
-* ``masked_sls_dedup`` and ``fused_front_end_dedup`` -- the gather-once
-  variants, kernels of their own in the same sources; they replace
-  ``repro/kernels/sls.py:masked_sls_dedup_pallas`` and
-  ``fused_front_end_dedup_pallas``.  One launch each, no staging buffer:
-  each entry's row is read through the plan, ``unique_rows[slots[e]]``,
-  so duplicates share one address and the L2 serves them
-  (``csrc/gather_once.cuh``).  Bound by bytes (each distinct row once), in
-  practice by each bag's chain of metadata -> row id -> row loads; a team
-  of threads per bag keeps several rows in flight, in launches shaped by
-  :func:`sls_dedup_shape` and :func:`front_end_dedup_shape`.
+  features never reach device memory (:func:`front_end_shape`).
 * ``fused_partial_pool`` and ``fused_partial_pool_dedup`` -- the pooling
   stopped before the interaction, in a kernel of its own in
   ``csrc/fused_front_end.cu``; they replace
@@ -91,7 +90,8 @@ def _expect_table(table: torch.Tensor, name: str, dtypes) -> None:
     if not table.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if table.shape[0] == 0:
-        raise ValueError(f"{name} needs a row 0 (masked-out entries read it)")
+        raise ValueError(f"{name} needs a row 0 (the plain versions read it "
+                         "for masked-out entries)")
 
 
 def check_masked_sls(table, indices, owned, weights, scales) -> None:
@@ -125,12 +125,14 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
         return out
     if L == 0:
         return out.zero_()
-    fn = build.entry("masked_sls", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                                    _I, _P])
-    err = fn(table.data_ptr(), table.element_size(), D,
-             _vec16(D, table.element_size(), table), indices.data_ptr(),
-             _ptr(owned), _ptr(weights), _ptr(scales), out.data_ptr(), N, L,
-             _stream(table))
+    vec, _, inflight, threads, _ = sls_shape(
+        N, D, table.element_size(),
+        bool(_vec16(D, table.element_size(), table)), _n_sm(table))
+    fn = build.entry("masked_sls", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _P])
+    err = fn(table.data_ptr(), table.element_size(), D, vec, inflight,
+             indices.data_ptr(), _ptr(owned), _ptr(weights), _ptr(scales),
+             out.data_ptr(), N, L, threads, _stream(table))
     build.check("masked_sls", err)
     build.KERNELS["masked_sls"].launches += 1
     return out
@@ -177,9 +179,13 @@ def fused_block(B: int, F: int, D: int, n_sm: int) -> int:
     return max(1, min(MAX_BLOCK_B, -(-B // n_sm), fit))
 
 
-SLS_DEDUP_THREADS = 64     # threads per masked_sls_dedup block, at most
-FE_DEDUP_THREADS = 256     # threads per fused_front_end_dedup CTA, at most
+SLS_THREADS = 64           # threads per masked_sls(_dedup) block, at most
+FE_THREADS = 256           # threads per fused_front_end(_dedup) CTA, at most
 PLAN_ENTRY_BYTES = 16      # shared memory per thread and tier (PlanEntry)
+
+
+def _n_sm(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def team_size(chunks: int) -> int:
@@ -191,54 +197,60 @@ def team_size(chunks: int) -> int:
     return team
 
 
-def sls_dedup_shape(N: int, D: int, itemsize: int, aligned: bool,
-                    n_sm: int):
-    """Launch shape of ``masked_sls_dedup``: (vec, team, inflight, threads,
-    blocks).
+def sls_shape(N: int, D: int, itemsize: int, aligned: bool, n_sm: int):
+    """Launch shape of ``masked_sls`` and ``masked_sls_dedup``: (vec, team,
+    inflight, threads, blocks).
 
     Row elements per lane as the partial pool takes them (:func:`pool_vec`,
     one shard), a team of threads per bag, and blocks of whole warps and at
-    most ``SLS_DEDUP_THREADS`` threads, with few enough bags per block that
+    most ``SLS_THREADS`` threads, with few enough bags per block that
     the N bags spread over every SM (batch 32 at one shard: 256 bags, 128
     blocks).  Block ``i`` holds bags ``i * threads / team`` onwards.  Rows
     in flight per lane: 8 below ``WALK_MIN_BAGS_PER_SM`` bags per SM (the
     card is mostly idle and each bag's chain of loads is the time), else 4
     (fewer registers, more warps)."""
     if N < 1:
-        raise ValueError(f"masked_sls_dedup needs N >= 1 bags, got {N}")
+        raise ValueError(f"masked_sls needs N >= 1 bags, got {N}")
     vec = pool_vec(D, itemsize, aligned, 1, N, n_sm)
     team = team_size(D // vec)
     warp = 32 // team                      # bags per warp
-    per = min(SLS_DEDUP_THREADS // team, -(-N // (n_sm * warp)) * warp)
+    per = min(SLS_THREADS // team, -(-N // (n_sm * warp)) * warp)
     inflight = 8 if N < WALK_MIN_BAGS_PER_SM * n_sm else 4
     return vec, team, inflight, per * team, -(-N // per)
 
 
-def front_end_dedup_shape(B: int, G: int, D: int, itemsize: int,
-                          aligned: bool, n_sm: int):
-    """Launch shape of ``fused_front_end_dedup``: (vec, team, BB, threads);
-    the grid is ``ceil(B / BB)`` CTAs, one per feature tile of BB samples.
+def front_end_shape(B: int, G: int, D: int, itemsize: int, aligned: bool,
+                    n_sm: int):
+    """Launch shape of ``fused_front_end`` and ``fused_front_end_dedup``:
+    (vec, team, BB, threads, inflight); the grid is ``ceil(B / BB)`` CTAs,
+    one per feature tile of BB samples.
 
     Row elements per lane as :func:`pool_vec` picks them for one shard, a
     team of threads per bag, BB as :func:`fused_block` picks it with at
     most one bag per team of a full CTA (so a small batch gets one CTA per
-    sample), and whole warps, at most ``FE_DEDUP_THREADS``, one team per
+    sample), and whole warps, at most ``FE_THREADS``, one team per
     bag of the tile where they fit (the teams walk the rest in turn).
+    Rows in flight per lane: 8 below ``WALK_MIN_BAGS_PER_SM`` bags per SM
+    with a float32 cold tier (few CTAs, and each bag's chain of loads is
+    the time), else 4 (registers for 4 CTAs per SM); an int8 cold tier
+    keeps its rows in a list of their own, 2 per tier.
     Raises where shared memory cannot hold one sample's tile beside the
     metadata."""
     if G < 1:
-        raise ValueError(f"fused_front_end_dedup needs G >= 1, got {G}")
+        raise ValueError(f"the fused front end needs G >= 1, got {G}")
     F = G + 1
-    meta = 2 * FE_DEDUP_THREADS * PLAN_ENTRY_BYTES
+    meta = 2 * FE_THREADS * PLAN_ENTRY_BYTES
     fit = (SMEM_MAX - meta) // (F * (D + 1) * 4)
     if fit < 1:
         raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
     vec = pool_vec(D, itemsize, aligned, 1, B * G, n_sm)
     team = team_size(D // vec)
     BB = max(1, min(fused_block(B, F, D, n_sm), fit,
-                    FE_DEDUP_THREADS // team // G))
-    threads = min(FE_DEDUP_THREADS, -(-BB * G * team // 32) * 32)
-    return vec, team, BB, threads
+                    FE_THREADS // team // G))
+    threads = min(FE_THREADS, -(-BB * G * team // 32) * 32)
+    inflight = (8 if itemsize == 4 and B * G < WALK_MIN_BAGS_PER_SM * n_sm
+                else 4)
+    return vec, team, BB, threads, inflight
 
 
 def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
@@ -262,16 +274,17 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
     if L == 0:
         raise ValueError("fused_front_end needs L >= 1 (core/sls.py answers "
                          "empty bags with zeros, as the reference does)")
-    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
-    max_bb = fused_block(B, F, D, n_sm)
+    n_sm = _n_sm(cold)
+    vec, _, BB, threads, inflight = front_end_shape(
+        B, G, D, cold.element_size(),
+        bool(_vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot)), n_sm)
     fn = build.entry("fused_front_end", [_P, _I, _I, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _I, _I, _I, _I, _I, _P])
-    err = fn(cold.data_ptr(), cold.element_size(),
-             _vec16(D, cold.element_size(), cold)
-             & _vec16(D, 4, hot), hot.data_ptr(),
+                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _P])
+    err = fn(cold.data_ptr(), cold.element_size(), vec, hot.data_ptr(),
              x.data_ptr(), rows.data_ptr(), owned.data_ptr(),
              is_hot.data_ptr(), _ptr(weights), _ptr(scales), out.data_ptr(),
-             B, G, L, D, max_bb, _stream(cold))
+             B, G, L, D, BB, threads, inflight, _stream(cold))
     build.check("fused_front_end", err)
     build.KERNELS["fused_front_end"].launches += 1
     return out
@@ -323,10 +336,9 @@ def masked_sls_dedup(table: torch.Tensor, unique_rows: torch.Tensor,
         return out
     if L == 0:
         return out.zero_()
-    n_sm = torch.cuda.get_device_properties(table.device).multi_processor_count
-    vec, _, inflight, threads, _ = sls_dedup_shape(
+    vec, _, inflight, threads, _ = sls_shape(
         N, D, table.element_size(),
-        bool(_vec16(D, table.element_size(), table)), n_sm)
+        bool(_vec16(D, table.element_size(), table)), _n_sm(table))
     fn = build.entry("masked_sls_dedup",
                      [_P, _I, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                       _I, _I, _P])
@@ -383,19 +395,19 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
     if L == 0:
         raise ValueError("fused_front_end_dedup needs L >= 1 (core/sls.py "
                          "answers empty bags with zeros)")
-    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
-    vec, _, BB, threads = front_end_dedup_shape(
+    n_sm = _n_sm(cold)
+    vec, _, BB, threads, inflight = front_end_shape(
         B, G, D, cold.element_size(),
         bool(_vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot)), n_sm)
     fn = build.entry("fused_front_end_dedup",
                      [_P, _I, _I64, _I, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
     err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0], vec,
              hot.data_ptr(), hot.shape[0], x.data_ptr(), c_unique.data_ptr(),
              _ptr(c_scales), h_unique.data_ptr(), c_slots.data_ptr(),
              h_slots.data_ptr(), owned.data_ptr(), is_hot.data_ptr(),
              _ptr(weights), out.data_ptr(), B, G, L, D, BB, threads,
-             _stream(cold))
+             inflight, _stream(cold))
     build.check("fused_front_end_dedup", err)
     build.KERNELS["fused_front_end_dedup"].launches += 1
     return out
@@ -495,7 +507,7 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
     if L == 0 or G == 0:
         raise ValueError("fused_partial_pool needs G, L >= 1 (core/sls.py "
                          "answers empty bags itself, as the reference does)")
-    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
+    n_sm = _n_sm(cold)
     nsh, _ = shard_group(S, B * G, n_sm)
     vec = pool_vec(D, cold.element_size(),
                    bool(_vec16(D, cold.element_size(), cold)
@@ -563,7 +575,7 @@ def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
     Uc, Uh = c_slots.numel(), h_slots.numel()
     c_stage = torch.empty((Uc, D), dtype=torch.float32, device=cold.device)
     h_stage = torch.empty((Uh, D), dtype=torch.float32, device=cold.device)
-    n_sm = torch.cuda.get_device_properties(cold.device).multi_processor_count
+    n_sm = _n_sm(cold)
     nsh, _ = shard_group(S, B * G, n_sm)
     fn = build.entry("fused_partial_pool_dedup",
                      [_P, _I, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P, _P,

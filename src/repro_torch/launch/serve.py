@@ -8,7 +8,9 @@ zipfian request stream (the reference's ``serving/loadgen.request_stream``
 ids, bit for bit), a fixed-size batcher with exact padding, and the serve
 step (bottom MLP -> lookup -> interaction -> top MLP -> sigmoid) on the
 card.  Runs on CUDA unless ``--device cpu``.  ``--mode pifs|pond|beacon``
-is the engine's mode (the reference CLI's); the engine's cold-tier shard
+is the engine's mode (the reference CLI's: every mode, beacon too, gets
+the same hot tier, and the engine serves beacon as pifs); the engine's
+cold-tier shard
 count is :func:`bind_model`'s ``n_shards`` (the reference CLI has no
 flag for it either).
 
@@ -289,12 +291,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = reduced(cfg)
     reqs = request_stream(cfg, args.requests, seed=args.seed,
                           storage=args.storage)
-    # beacon: tiering disabled, no page promoted
-    hot = args.mode != "beacon"
+    # every mode, beacon too, gets the hot tier the reference CLI gives it
+    # (hot_fraction=0.05, serve_offered_load's default); its datapath
+    # serves beacon as pifs
     binding = bind_model(cfg, args.device, storage=args.storage,
-                         seed=args.seed,
-                         hot_fraction=0.05 if hot else 0.0,
-                         profile=reqs[: max(1, len(reqs) // 4)] if hot else (),
+                         seed=args.seed, hot_fraction=0.05,
+                         profile=reqs[: max(1, len(reqs) // 4)],
                          dedup=args.dedup)
     if args.dedup == "auto":
         prime_dedup_auto(binding, reqs)

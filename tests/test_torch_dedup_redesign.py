@@ -1,8 +1,8 @@
 """The launch shapes of the gather-once kernels that read rows through the
 dedup plan, and the property they rely on.
 
-``sls_dedup_shape`` and ``front_end_dedup_shape`` (``kernels/sls.py``)
-decide the launches of ``masked_sls_dedup`` (a team of threads per bag,
+``sls_shape`` and ``front_end_shape`` (``kernels/sls.py``) decide the
+launches of ``masked_sls_dedup`` (a team of threads per bag,
 blocks of whole warps) and ``fused_front_end_dedup`` (a CTA per feature
 tile of BB samples, a team of threads per bag).  Their limits, and that every bag is pooled exactly once, are held
 here on the CPU for every shape the RMC configurations and
@@ -58,19 +58,19 @@ BAGS = [1, 2, 31, 32, 33, 255, 256, 257, 296, 1023, 1024, 2111, 2112,
 @pytest.mark.parametrize("D", [16, 18, 64, 128])
 @pytest.mark.parametrize("itemsize", [4, 1])
 def test_sls_dedup_shape_covers_every_bag(N, D, itemsize):
-    """Whole warps, at most SLS_DEDUP_THREADS threads, whole teams of the
+    """Whole warps, at most SLS_THREADS threads, whole teams of the
     kernel's team size, a chunk width that divides D; every bag in exactly
     one team; and a batch-32 step at the RMC widths (256 bags of 64 or 128)
     spread over the SMs."""
     for aligned in ((True, False) if (D * itemsize) % 16 == 0 else (False,)):
-        vec, team, inflight, threads, blocks = ksls.sls_dedup_shape(
+        vec, team, inflight, threads, blocks = ksls.sls_shape(
             N, D, itemsize, aligned, N_SM)
         assert inflight == (8 if N < ksls.WALK_MIN_BAGS_PER_SM * N_SM
                             else 4)
         assert D % vec == 0 and team == ksls.team_size(D // vec)
         assert vec == ksls.pool_vec(D, itemsize, aligned, 1, N, N_SM)
         assert threads % 32 == 0 and threads % team == 0
-        assert 32 <= threads <= ksls.SLS_DEDUP_THREADS
+        assert 32 <= threads <= ksls.SLS_THREADS
         per = threads // team
         bags = (np.arange(blocks)[:, None] * per
                 + np.arange(per)[None, :]).ravel()
@@ -87,7 +87,7 @@ def test_sls_dedup_shape_covers_every_bag(N, D, itemsize):
 
 def test_sls_dedup_shape_refuses_no_bags():
     with pytest.raises(ValueError):
-        ksls.sls_dedup_shape(0, 128, 4, True, N_SM)
+        ksls.sls_shape(0, 128, 4, True, N_SM)
 
 
 def _front_end_cover(B, G, BB, threads, team):
@@ -112,7 +112,7 @@ def _front_end_cover(B, G, BB, threads, team):
                                2053])
 def test_front_end_dedup_shape_covers_every_bag(G, D, B):
     """1 to MAX_BLOCK_B samples per CTA, whole warps (at most
-    FE_DEDUP_THREADS threads, whole teams), a tile and the metadata within
+    FE_THREADS threads, whole teams), a tile and the metadata within
     shared memory, every (sample, bag) pooled exactly once, no more teams
     than the tile has bags beyond a warp's rounding, and one CTA per sample
     up to a CTA per SM (batch 32 at RMC4: 32 CTAs of 256 threads)."""
@@ -120,15 +120,15 @@ def test_front_end_dedup_shape_covers_every_bag(G, D, B):
     for itemsize in (4, 1):
         for aligned in ((True, False) if (D * itemsize) % 16 == 0
                         else (False,)):
-            vec, team, BB, threads = ksls.front_end_dedup_shape(
+            vec, team, BB, threads, _ = ksls.front_end_shape(
                 B, G, D, itemsize, aligned, N_SM)
             assert D % vec == 0 and team == ksls.team_size(D // vec)
             assert vec == ksls.pool_vec(D, itemsize, aligned, 1, B * G, N_SM)
             assert 1 <= BB <= ksls.MAX_BLOCK_B
             assert threads % 32 == 0 and threads % team == 0
-            assert threads <= ksls.FE_DEDUP_THREADS
+            assert threads <= ksls.FE_THREADS
             assert threads < BB * G * team + 32
-            assert (BB * F * (D + 1) * 4 + 2 * ksls.FE_DEDUP_THREADS
+            assert (BB * F * (D + 1) * 4 + 2 * ksls.FE_THREADS
                     * ksls.PLAN_ENTRY_BYTES) <= SMEM_MAX
             if B <= N_SM:
                 assert BB == 1
@@ -136,16 +136,16 @@ def test_front_end_dedup_shape_covers_every_bag(G, D, B):
             assert len(seen) == B * G
             assert set(seen) == {(b, g) for b in range(B) for g in range(G)}
     if (G, D) == (8, 128) and B == 32:
-        _, _, BB, threads = ksls.front_end_dedup_shape(32, 8, 128, 4, True,
-                                                       N_SM)
+        _, _, BB, threads, _ = ksls.front_end_shape(32, 8, 128, 4, True,
+                                                    N_SM)
         assert (BB, threads) == (1, 256)
 
 
 def test_front_end_dedup_shape_refuses_a_tile_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        ksls.front_end_dedup_shape(4, 100, 1024, 4, True, N_SM)
+        ksls.front_end_shape(4, 100, 1024, 4, True, N_SM)
     with pytest.raises(ValueError):
-        ksls.front_end_dedup_shape(4, 0, 128, 4, True, N_SM)
+        ksls.front_end_shape(4, 0, 128, 4, True, N_SM)
 
 
 # ------------------------------------------------- masked-entry property
