@@ -9,8 +9,10 @@ the parent's package, calling only the kernels' public wrappers -- in
 turns parent, change, change, parent, each run's output in
 ``DIR/run<i>_<tree>.log`` (default ``build/ab``), and fails if a run
 fails.  Then it prints, for every ``timing`` row of ``chip_smoke.py``
-(kernel, configuration, batch, shards), the mean time of the parent's two
-runs and of the change's two, change / parent and the bound; and for every
+(kernel, configuration, batch, shards, and how the L2 was flushed), the
+mean time of the parent's two runs and of the change's two, change /
+parent, the bound and, where the row has one, the mean time of a copy of
+the same bytes over all runs; and for every
 ``serve_step`` row the device operations and busy time per step, parent
 and change.  Each run prints the card's name and power limit first.
 """
@@ -65,20 +67,28 @@ def main() -> None:
         print(f"run {i} {which}: {log.read_text().splitlines()[0]}",
               flush=True)
     ms = collections.defaultdict(lambda: {"parent": [], "change": []})
+    copy = collections.defaultdict(list)
     bound = {}
     for which, paths in logs.items():
         for p in paths:
             for d in rows(p, "timing"):
-                k = (d["name"], d["arch"], d["storage"], d["batch"],
-                     d.get("n_shards", 1))
-                ms[k][which].append(d["ms"])
-                bound[k] = d["bound_ms"]
-    print("| kernel | config | batch | shards | parent ms | change ms | "
-          "change / parent | bound ms |")
+                for l2, key in (("dirty", "ms"), ("clean", "clean_ms"),
+                                ("warm", "warm_ms")):
+                    if key not in d:
+                        continue
+                    k = (d["name"], d["arch"], d["storage"], d["batch"],
+                         d.get("n_shards", 1), l2)
+                    ms[k][which].append(d[key])
+                    bound[k] = d["bound_ms"]
+                    if "copy_" + key in d:
+                        copy[k].append(d["copy_" + key])
+    print("| kernel | config | batch | shards | L2 | parent ms | change ms "
+          "| change / parent | bound ms | copy ms |")
     for k, v in ms.items():
         p, c = mean(v["parent"]), mean(v["change"])
-        print(f"| {k[0]} | {k[1]} {k[2]} | {k[3]} | {k[4]} | {p:.4f} | "
-              f"{c:.4f} | {c / p:.3f} | {bound[k]:.5f} |")
+        cp = f"{mean(copy[k]):.4f}" if copy[k] else "-"
+        print(f"| {k[0]} | {k[1]} {k[2]} | {k[3]} | {k[4]} | {k[5]} | "
+              f"{p:.4f} | {c:.4f} | {c / p:.3f} | {bound[k]:.5f} | {cp} |")
     steps = collections.defaultdict(lambda: {"parent": [], "change": []})
     for which, paths in logs.items():
         for p in paths:

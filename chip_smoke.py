@@ -28,7 +28,11 @@
    rows of +-1e30 (int8: +-127) under every masked entry leave the tiles
    unchanged; and the resume alone at B = 1, 31, 32, 2053, D in {16, 18,
    64, 128} and S in {1, 2, 3, 4, 8, 12} against its plain version and,
-   bitwise, against dot_interaction of the shard-order sum;
+   bitwise, against dot_interaction of the shard-order sum; and
+   dot_interaction alone, both triangles, F in {2, 9, 27}, at B = 1 and
+   batches no block size divides, against its plain version (bitwise on
+   integer feats), and bitwise equal across its paths: float4 and the
+   scalar path a view offset by one float takes;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -70,11 +74,13 @@
    (each distinct row counted once) -- the partial pools and the resume
    at 4 shards and at 1 (pond's fused path), ``masked_sls`` and
    ``masked_sls_dedup`` also at 4 shards (the split path's stacked
-   bags) --, times ``dedup_plan``, and times the serve steps at batch 32
-   and 2048 with dedup off and on, at 4 shards (split and fused also with
-   dedup on) and in pond (host clock to a
-   synchronize), with the device's busy time and operations in them from
-   ``torch.profiler``.
+   bags), ``dot_interaction`` beside ``feats.clone()`` (``copy_ms``) and
+   both also with the L2 flushed clean and warm --, times ``dedup_plan``,
+   and
+   times the serve steps at batch 32 and 2048 with dedup off and on, at 4
+   shards (split and fused also with dedup on) and in pond (host clock to
+   a synchronize), with the device's busy time and operations in them
+   from ``torch.profiler``.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -158,20 +164,28 @@ def smi() -> str:
 class Timer:
     """CUDA-event time of one launch with a cold L2: each repetition
     overwrites a 256 MB buffer (> the 50 MB L2), keeps the card busy while
-    the host enqueues, then records events around the call alone."""
+    the host enqueues, then records events around the call alone.
+
+    ``l2="dirty"`` (the default) flushes by writing, so the call's reads
+    also write back the buffer's dirty lines; ``"clean"`` flushes by
+    reading the buffer; ``"warm"`` does not flush, and the call finds what
+    its last repetition left in the L2."""
 
     def __init__(self, reps: int = 25):
         self.reps = reps
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, l2: str = "dirty") -> float:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            if l2 == "dirty":
+                self.flush.zero_()
+            elif l2 == "clean":
+                self.flush.amax()
             torch.cuda._sleep(2_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -427,11 +441,12 @@ def kernel_phase(gen: torch.Generator) -> None:
                 [x[:, None], (cold_p + 0.0).reshape(B, G, D)], 1))
             assert_equal(fk, split, f"fused empty-hot D={D} {storage}")
     n_edge = per_entry_edge_checks(gen)
+    n_dot = interaction_edge_checks(gen)
     n_dedup = dedup_kernel_checks(gen)
     n_tp = partial_pool_kernel_checks(gen)
     torch.cuda.synchronize()
     print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_edge} "
-          f"per-entry edge cases + {n_dedup} "
+          f"per-entry edge cases + {n_dot} interaction cases + {n_dedup} "
           f"gather-once cases + {n_tp} partial-pool/resume cases passed; "
           f"launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
@@ -593,6 +608,43 @@ def dedup_edge_checks(gen: torch.Generator) -> int:
                             t, h, x, rows3, own3, hot3, w3, s3, dedup=True),
                             fwant, f"fused_front_end_dedup == fused "
                                    f"{tag}{what}")
+                    n_cases += 1
+    return n_cases
+
+
+def interaction_edge_checks(gen: torch.Generator) -> int:
+    """The dot_interaction kernel on its own, both triangles, F in {2, 9,
+    27}, D in {16, 18, 64, 128}, B in {1, 37, 531, 2053} (one sample, and
+    batches no block size divides):
+    - within the dot tolerance of its plain version on random feats, and
+      bitwise equal to it on integer feats (every product and sum exact);
+    - bitwise equal on a contiguous view offset by one float (not 16-byte
+      aligned: the scalar path, interact_tile, the parent kernel's
+      arithmetic and the fused front end's)."""
+    from repro_torch.kernels import ops
+
+    n_cases = 0
+    for F in (2, 9, 27):
+        for D in (16, 18, 64, 128):
+            for B in (1, 37, 531, 2053):
+                feats = torch.randn((B, F, D), generator=gen, device="cuda")
+                buf = torch.empty(feats.numel() + 1, device="cuda")
+                buf[1:] = feats.flatten()
+                mis = buf[1:].view(B, F, D)
+                check(mis.data_ptr() % 16 != 0, "offset view is aligned")
+                ints = torch.randint(-8, 9, (B, F, D), generator=gen,
+                                     device="cuda").float()
+                for si in (False, True):
+                    tag = f"dot_interaction F={F} D={D} B={B} self={si}"
+                    k = ops.dot_interaction(feats, si)
+                    assert_close(k, ops.dot_interaction(feats, si,
+                                                        impl="torch"),
+                                 dot_tol(feats, si), tag)
+                    assert_equal(ops.dot_interaction(mis, si), k,
+                                 f"{tag}: scalar path (misaligned view)")
+                    assert_equal(ops.dot_interaction(ints, si),
+                                 ops.dot_interaction(ints, si, impl="torch"),
+                                 f"{tag}: integer feats")
                     n_cases += 1
     return n_cases
 
@@ -1211,6 +1263,14 @@ def slice_phase(timer: Timer):
                                         else None),
                          "max_abs_err": float((kout - pout).abs().max()),
                          **cost}
+                    if name == "dot_interaction":
+                        # the same bytes read (and written) by a copy, and
+                        # both with the L2 flushed clean and warm
+                        copy = lambda: feats.clone()  # noqa: E731
+                        d["copy_ms"] = timer(copy)
+                        for l2 in ("clean", "warm"):
+                            d[f"{l2}_ms"] = timer(kfn, l2)
+                            d[f"copy_{l2}_ms"] = timer(copy, l2)
                     details.append(d)
                 assert_equal(outs["masked_sls_dedup/cold"],
                              outs["masked_sls/cold"],

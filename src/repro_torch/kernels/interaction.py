@@ -1,23 +1,22 @@
-"""Wrapper of the CUDA dot-interaction kernel: check, launch, count.
+"""Wrappers of the CUDA interaction kernels: check, launch, count.
 
-``csrc/dot_interaction.cu`` replaces the Pallas TPU kernel
+``csrc/dot_interaction.cu`` holds one kernel template for two kernels.
+``dot_interaction`` replaces the Pallas TPU kernel
 ``repro/kernels/interaction.py:dot_interaction_pallas``: Z = X X^T per
 sample on (B, F, D), packed lower triangle (B, P), the (B, F, F) product
-never in memory.  Bound by bytes (about 2 flops per byte at F = 9); a block
-stages a few samples' tiles in shared memory and each thread reduces whole
-dots in a fixed order over D, with the device function the fused front
-end shares.  Timings on the card are in ``PERF.md``.
+never in memory.  ``fused_resume`` replaces ``repro/kernels/sls.py:
+fused_resume_pallas``: the same interaction on the partial-pool tiles'
+sum, the S cold shards' tiles in shard order plus the hot tile.  Both are
+bound by bytes (about 2 flops per byte at F = 9).
 
-``fused_resume`` (same source) replaces ``repro/kernels/sls.py:
-fused_resume_pallas``: the tile it interacts is the partial-pool tiles'
-sum, the S cold shards' tiles in shard order plus the hot tile.  Bound by
-bytes ((S + 1) tiles in, (B, P) out).  Its launch is sized to the bytes,
-not to the pairs (:func:`resume_shape`): blocks of 128 or 256 threads read
-each tile's contiguous run of NS samples as float4, all S + 1 loads of an
-element in flight before the adds, into a shared tile whose row stride
-keeps float4 alignment; then each thread reduces whole dots with the same
-fmaf sequence as ``dot_interaction``, so partial pool -> resume equals
-split bit for bit.
+Both launches are sized to the bytes, not to the pairs
+(:func:`tile_shape`): blocks of 128 or 256 threads own NS samples, whose
+tiles are contiguous runs, staged into shared memory at a row stride that
+keeps float4 alignment, as float4 through registers with several loads
+per thread in flight (``dot_interaction`` one run, the resume S + 1);
+each thread then reduces whole dots with the fmaf sequence the fused
+front end shares, so fused == split and partial pool -> resume ==
+split bit for bit.  Timings on the card are in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -37,29 +36,20 @@ def check_dot_interaction(feats: torch.Tensor) -> None:
         raise ValueError("feats must be contiguous")
 
 
-def samples_per_block(B: int, F: int, D: int, P: int, n_sm: int) -> int:
-    """A few samples per block: enough pairs for 256 threads, few enough
-    blocks' worth that the batch spreads over every SM, and a tile that
-    fits shared memory."""
-    fit = SMEM_MAX // (F * (D + 1) * 4)
-    if fit < 1:
-        raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
-    return max(1, min(max(1, 256 // P), -(-B // n_sm), fit))
+TILE_BLOCKS_PER_SM = 4     # blocks per SM the batch is spread over
+TILE_MAX_NS = 8            # samples per block, at most
+DOT_PAIRS = 4              # pairs per thread once a block holds 2+ samples
 
 
-RESUME_BLOCKS_PER_SM = 4   # resume blocks per SM the batch is spread over
-RESUME_MAX_NS = 8          # samples per resume block, at most
+def tile_shape(B: int, F: int, D: int, n_sm: int, vec4: bool = True):
+    """Launch shape of the interaction kernels: (NS samples per block,
+    threads, shared row stride lds in floats).
 
-
-def resume_shape(B: int, F: int, D: int, n_sm: int, vec4: bool = True):
-    """Launch shape of the resume kernel: (NS samples per block, threads,
-    shared row stride lds in floats).
-
-    NS spreads the batch over ``RESUME_BLOCKS_PER_SM`` blocks per SM (so a
-    small batch still gets one block per sample), at most
-    ``RESUME_MAX_NS`` and a tile that fits shared memory.  Threads follow
-    the tile's bytes, not its pairs: 256 when the tile holds at least 256
-    float4 elements, else 128.  With ``vec4`` the row stride is
+    NS spreads the batch over ``TILE_BLOCKS_PER_SM`` blocks per SM (so a
+    small batch still gets one block per sample), at most ``TILE_MAX_NS``
+    and a tile that fits shared memory.  Threads follow the tile's bytes,
+    not its pairs: 256 when the tile holds at least 256 float4 elements,
+    else 128.  With ``vec4`` the row stride is
     4 * (the least odd number > D / 4), 16-byte aligned rows whose float4
     reads at one d fall in distinct bank groups; else D + 1."""
     if vec4:
@@ -70,16 +60,32 @@ def resume_shape(B: int, F: int, D: int, n_sm: int, vec4: bool = True):
     fit = SMEM_MAX // (F * lds * 4)
     if fit < 1:
         raise ValueError(f"a ({F}, {D}) feature tile exceeds shared memory")
-    NS = max(1, min(RESUME_MAX_NS, -(-B // (RESUME_BLOCKS_PER_SM * n_sm)),
-                    fit))
+    NS = max(1, min(TILE_MAX_NS, -(-B // (TILE_BLOCKS_PER_SM * n_sm)), fit))
     threads = 256 if NS * F * D >= 4 * 256 else 128
     return NS, threads, lds
 
 
-def dot_interaction(feats: torch.Tensor,
-                    self_interaction: bool = False) -> torch.Tensor:
+def dot_pairs(NS: int) -> int:
+    """Pairs (i, j..j+K-1) of one row per thread in the dot phase: one at
+    one sample per block, where a sample's chains are all the parallelism
+    there is; else ``DOT_PAIRS``, which reads x_i once for all of them."""
+    return 1 if NS == 1 else DOT_PAIRS
+
+
+def vec4_tiles(*tiles: torch.Tensor) -> bool:
+    """Whether the kernels may stage these (..., D) tiles as float4: D % 4
+    == 0 and every tile 16-byte aligned; else the scalar path of the same
+    kernel."""
+    return all(t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0
+               for t in tiles)
+
+
+def dot_interaction(feats: torch.Tensor, self_interaction: bool = False
+                    ) -> torch.Tensor:
     """(B, F, D) -> (B, P) on the card (plain version:
-    ``ref.dot_interaction_ref``)."""
+    ``ref.dot_interaction_ref``).  A 16-byte aligned ``feats`` with
+    D % 4 == 0 reaches shared memory as float4, any other by scalar
+    loads."""
     check_dot_interaction(feats)
     if feats.device.type != "cuda":
         raise ValueError("the dot_interaction kernel takes CUDA tensors")
@@ -90,11 +96,13 @@ def dot_interaction(feats: torch.Tensor,
         return out
     n_sm = torch.cuda.get_device_properties(
         feats.device).multi_processor_count
-    S = samples_per_block(B, F, D, P, n_sm)
+    vec4 = vec4_tiles(feats)
+    NS, threads, lds = tile_shape(B, F, D, n_sm, vec4)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    fn = build.entry("dot_interaction", [P_, P_, I_, I_, I_, I_, I_, I_, P_])
+    fn = build.entry("dot_interaction", [P_, P_] + [I_] * 10 + [P_])
     err = fn(feats.data_ptr(), out.data_ptr(), B, F, D, P,
-             int(self_interaction), S, _stream(feats))
+             int(self_interaction), NS, threads, lds, dot_pairs(NS),
+             int(vec4), _stream(feats))
     build.check("dot_interaction", err)
     build.KERNELS["dot_interaction"].launches += 1
     return out
@@ -129,9 +137,8 @@ def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor
         return out
     n_sm = torch.cuda.get_device_properties(
         part_h.device).multi_processor_count
-    vec4 = D % 4 == 0 and part_c.data_ptr() % 16 == 0 \
-        and part_h.data_ptr() % 16 == 0
-    NS, threads, lds = resume_shape(B, F, D, n_sm, vec4)
+    vec4 = vec4_tiles(part_c, part_h)
+    NS, threads, lds = tile_shape(B, F, D, n_sm, vec4)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
     fn = build.entry("fused_resume", [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_,
                                       I_, I_, P_])

@@ -265,7 +265,7 @@ def test_block_sizes_spread_the_batch_and_fit_shared_memory():
     # team): batch 2053 on 132 SMs allows 16; batch 32 one, so 32 SMs work
     assert ksls.fused_block(2053, 9, 128, 132) == 16
     assert ksls.fused_block(32, 9, 64, 132) == 1
-    assert kinteraction.samples_per_block(2053, 9, 128, 36, 132) == 7
+    assert kinteraction.tile_shape(2053, 9, 128, 132) == (4, 256, 132)
     # a tile is capped by the 227 KB of shared memory a block can use
     assert ksls.fused_block(10 ** 6, 41, 1024, 1) == 1
     with pytest.raises(ValueError):

@@ -1,7 +1,7 @@
 """The launch shapes of the redesigned partial-pool and resume kernels, and
 the property the one-walk partial pool relies on.
 
-``resume_shape`` (``kernels/interaction.py``) and ``shard_group``
+``tile_shape`` (``kernels/interaction.py``) and ``shard_group``
 (``kernels/sls.py``) decide the launches of ``fused_resume`` and
 ``fused_partial_pool[_dedup]``; their limits are held here on the CPU for
 every shape the RMC configurations and ``chip_smoke.py`` give them.
@@ -34,35 +34,39 @@ def _used_shapes():
     """(F, D) of the RMC configurations and of chip_smoke.py's checks."""
     fd = {(get_config(a).n_tables + 1, get_config(a).emb_dim)
           for a in ("rmc1", "rmc2", "rmc3", "rmc4")}
-    fd |= {(9, d) for d in (16, 18, 64, 128)}
+    fd |= {(f, d) for f in (2, 9, 27) for d in (16, 18, 64, 128)}
     return sorted(fd)
 
 
 @pytest.mark.parametrize("F,D", _used_shapes())
-@pytest.mark.parametrize("B", [1, 31, 32, 37, 2048, 2053])
+@pytest.mark.parametrize("B", [0, 1, 31, 32, 37, 2048, 2053])
 def test_resume_shape_fits_shared_memory(F, D, B):
-    """At least one sample per block, 128 or 256 threads, a tile within the
-    shared memory a block can use; with float4 loads a 16-byte aligned row
-    stride of an odd number of float4s (distinct bank groups for 8 rows);
-    and one sample per block up to 4 blocks per SM, so batch 32 runs 32
-    blocks."""
+    """The launch shape of both interaction kernels: at least one sample
+    per block, 128 or 256 threads, a tile within the shared memory a block
+    can use; with float4 loads a 16-byte aligned row stride of an odd
+    number of float4s (distinct bank groups for 8 rows), else D + 1; one
+    sample per block up to 4 blocks per SM, so batch 32 runs 32 blocks;
+    and blocks that cover the batch, spread over every SM."""
     for vec4 in ((True, False) if D % 4 == 0 else (False,)):
-        NS, threads, lds = kinteraction.resume_shape(B, F, D, N_SM, vec4)
-        assert 1 <= NS <= kinteraction.RESUME_MAX_NS
+        NS, threads, lds = kinteraction.tile_shape(B, F, D, N_SM, vec4)
+        assert 1 <= NS <= kinteraction.TILE_MAX_NS
         assert threads in (128, 256) and threads % 32 == 0
         assert lds >= D and NS * F * lds * 4 <= SMEM_MAX
         if vec4:
             assert lds % 4 == 0 and (lds // 4) % 2 == 1 and lds - D <= 8
         else:
             assert lds == D + 1
-        if B <= kinteraction.RESUME_BLOCKS_PER_SM * N_SM:
+        if B <= kinteraction.TILE_BLOCKS_PER_SM * N_SM:
             assert NS == 1
-        assert -(-B // NS) * NS >= B
+        assert -(-B // NS) * NS >= B and -(-B // NS) <= max(
+            B, kinteraction.TILE_BLOCKS_PER_SM * N_SM)
 
 
 def test_resume_shape_refuses_a_tile_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        kinteraction.resume_shape(4, 100, 1024, N_SM)
+        kinteraction.tile_shape(4, 100, 1024, N_SM)
+    with pytest.raises(ValueError, match="shared memory"):
+        kinteraction.tile_shape(4, 41, 1442, N_SM, vec4=False)
 
 
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 12, 16, 17])
