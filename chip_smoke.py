@@ -80,7 +80,24 @@
    times the serve steps at batch 32 and 2048 with dedup off and on, at 4
    shards (split and fused also with dedup on) and in pond (host clock to
    a synchronize), with the device's busy time and operations in them
-   from ``torch.profiler``.
+   from ``torch.profiler``;
+8. runtime phase: ``serve_offered_load``'s path (``build_serving`` +
+   ``run_offered_load``: the deadline-aware dynamic batcher over buckets
+   of batch 8, 16 and 32, SLO 50 ms, observe every 4 batches and re-plan
+   every 64, warmup first) at RMC1 and RMC4's published widths, launch
+   counts zeroed just before and read just after (rows 1 and 3-9 must
+   have run).  Measured runs, one ``runtime`` JSON line each: Poisson at
+   200 qps, 1024 requests (fp32 and int8, split and fused); Poisson at
+   half the rate the batch-32 bucket sustains by its warmup service time
+   (fp32 fused, 4096 requests; the batcher must coalesce past batch 8);
+   bursty MMPP-2 at 200 qps with poolings 2, 4 and 8 (split and fused);
+   64 closed-loop users; at RMC1 also dedup on (split and fused) and 4
+   shards fused with dedup off and on.  Each run serves every request,
+   drops and fails none, sees no signature new after warmup (and
+   re-plans if it covers 64 batches), with scores finite in (0, 1).
+   Under one pinned service model, the kernel path and the plain path
+   give the same flush trace and scores within 1e-5, and fused == split
+   and dedup on == off bitwise per request.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -998,6 +1015,29 @@ def partial_pool_kernel_checks(gen: torch.Generator) -> int:
 BIG_BUDGET = 1 << 30    # staging budget that lets batch 2048 resolve on
 
 
+def serve_step(b, front_end="split", **kw):
+    """A serve step over binding ``b``'s model and engine."""
+    from repro_torch.models import dlrm
+    return dlrm.make_serve_step(b.model, b.engine, front_end=front_end, **kw)
+
+
+def stream(cfg, n, seed, storage, **kw):
+    """The seeded zipfian DLRM request stream (200 qps Poisson arrivals)."""
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.request import ArrivalConfig
+    return loadgen.request_stream(cfg, loadgen.LoadConfig(
+        n, ArrivalConfig(200.0, seed=seed), seed=seed, storage=storage,
+        **kw))
+
+
+def pad_batch(cfg, reqs, batch):
+    """``reqs`` padded to one bucket of ``batch``, on the card."""
+    from repro_torch.serving.batcher import Bucket
+    from repro_torch.serving.loadgen import make_padder
+    host = make_padder(cfg)(reqs, Bucket(batch, cfg.pooling))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+
+
 def serve_runs(b, state0, reqs, bulk, batch, big, dedup, mode="pifs"):
     """Split and fused serve runs of ``reqs`` at ``batch`` and ``bulk`` at
     ``big``, each from the same starting state (the maintenance cadence
@@ -1006,7 +1046,8 @@ def serve_runs(b, state0, reqs, bulk, batch, big, dedup, mode="pifs"):
 
     def run(fe, rq, bs):
         b.state = state0
-        return srv.serve(b, b.step(fe, mode=mode, dedup=dedup), rq, bs)
+        return srv.serve(b, serve_step(b, fe, mode=mode, dedup=dedup), rq,
+                         bs)
 
     small = {fe: run(fe, reqs, batch) for fe in ("split", "fused")}
     if dedup == "on":
@@ -1050,8 +1091,8 @@ def oob_checks(b, state, hb, tag: str) -> None:
     lp = eng.lookup(state, sub["indices"], sub["weights"], impl="torch")
     torch.cuda.synchronize()
     assert_equal(lk, lp, f"{tag}: out-of-range ids, lookup kernel vs plain")
-    out = {fe: b.step(fe)(state, sub) for fe in ("split", "fused")}
-    plain = b.step("split", impl="torch")(state, sub)
+    out = {fe: serve_step(b, fe)(state, sub) for fe in ("split", "fused")}
+    plain = serve_step(b, "split", impl="torch")(state, sub)
     torch.cuda.synchronize()
     assert_equal(out["fused"], out["split"],
                  f"{tag}: out-of-range ids, fused vs split")
@@ -1071,8 +1112,7 @@ def slice_phase(timer: Timer):
     from repro_torch.core import sls as core_sls
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve as srv
-    from repro_torch.launch.serve import pad_batch
-    from repro_torch.serving.batcher import Bucket
+    from repro_torch.serving import loadgen
 
     n_req, batch, big = 256, 32, 2048
     paths = {"off": ("masked_sls", "dot_interaction", "fused_front_end"),
@@ -1087,10 +1127,10 @@ def slice_phase(timer: Timer):
         P = F * (F - 1) // 2
         for storage in ("fp32", "int8"):
             t0 = time.perf_counter()
-            reqs = srv.request_stream(cfg, n_req, seed=0, storage=storage)
-            bulk = srv.request_stream(cfg, big, seed=1, storage=storage)
-            b = srv.bind_model(cfg, "cuda", storage=storage, seed=0,
-                               profile=reqs[: n_req // 4])
+            reqs = stream(cfg, n_req, 0, storage)
+            bulk = stream(cfg, big, 1, storage)
+            b = loadgen.bind_model(cfg, "cuda", storage=storage, seed=0,
+                                   profile=reqs[: n_req // 4])
             torch.cuda.synchronize()
             setup_s = time.perf_counter() - t0
             tag = f"{arch} {storage}"
@@ -1124,7 +1164,8 @@ def slice_phase(timer: Timer):
                                          off[fe]["scores"]),
                           f"{tag} batch {bs} {fe}: dedup on != off bitwise")
             b.state = state0
-            plain = srv.serve(b, b.step("split", impl="torch"), reqs, batch)
+            plain = srv.serve(b, serve_step(b, "split", impl="torch"), reqs,
+                              batch)
             err = float(np.abs(plain["scores"]
                                - res["off"][0]["split"]["scores"]).max())
             check(err <= 1e-5, f"{tag}: kernel vs plain serve scores differ "
@@ -1134,8 +1175,9 @@ def slice_phase(timer: Timer):
                       if v["requested"] == "fused"), f"{tag}: {rec}")
             # ---- dedup auto, primed from the stream's prefix
             b.state = state0
-            primed = srv.prime_dedup_auto(b, reqs)
-            auto = {fe: srv.serve(b, b.step(fe, dedup="auto"), reqs, batch)
+            primed = loadgen.prime_dedup_auto(b, reqs)
+            auto = {fe: srv.serve(b, serve_step(b, fe, dedup="auto"), reqs,
+                                  batch)
                     for fe in ("split", "fused")}
             for fe in ("split", "fused"):
                 check(np.array_equal(auto[fe]["scores"],
@@ -1150,7 +1192,7 @@ def slice_phase(timer: Timer):
             eng.dedup_staging_bytes = BIG_BUDGET
             b.state = state0
             # ---- lookups: kernel == plain bitwise (0/1 weights)
-            hb = pad_batch(bulk, Bucket(big, cfg.pooling), eng.device)
+            hb = pad_batch(cfg, bulk, big)
             lk = eng.lookup(state0, hb["indices"], hb["weights"])
             lp = eng.lookup(state0, hb["indices"], hb["weights"],
                             impl="torch")
@@ -1303,7 +1345,7 @@ def slice_phase(timer: Timer):
                 # ---- serve step time: host clock to synchronize
                 for dedup in ("off", "on"):
                     for fe in ("split", "fused"):
-                        step = b.step(fe, dedup=dedup)
+                        step = serve_step(b, fe, dedup=dedup)
                         for _ in range(3):
                             step(state0, sub)
                         torch.cuda.synchronize()
@@ -1365,6 +1407,7 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.ref import shard_sum
     from repro_torch.launch import serve as srv
+    from repro_torch.serving import loadgen
 
     n_req, batch, big = len(reqs), 32, len(bulk)
     G, L, D = cfg.n_tables, cfg.pooling, cfg.emb_dim
@@ -1372,8 +1415,8 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
     P = F * (F - 1) // 2
     tag = f"{cfg.name} {storage}"
     t0 = time.perf_counter()
-    b4 = srv.bind_model(cfg, "cuda", storage=storage, seed=0,
-                        profile=reqs[: n_req // 4], n_shards=TP)
+    b4 = loadgen.bind_model(cfg, "cuda", storage=storage, seed=0,
+                            profile=reqs[: n_req // 4], n_shards=TP)
     state4 = b4.state
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1440,9 +1483,9 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
     oob_checks(b4, state4, hb, f"{tag} tp={TP}")
     # ---- dedup auto at 4 shards, primed from the stream's prefix
     b4.state = state4
-    srv.prime_dedup_auto(b4, reqs)
+    loadgen.prime_dedup_auto(b4, reqs)
     for fe in ("split", "fused"):
-        auto = srv.serve(b4, b4.step(fe, dedup="auto"), reqs, batch)
+        auto = srv.serve(b4, serve_step(b4, fe, dedup="auto"), reqs, batch)
         check(np.array_equal(auto["scores"], tp["off"][0][fe]["scores"]),
               f"{tag} tp={TP} {fe}: dedup auto != off bitwise")
     print(f"{tag}: tp={TP} setup {setup_s:.1f} s; dedup auto records "
@@ -1561,7 +1604,8 @@ def tp_phase(b1, state1, cfg, storage, reqs, bulk, pifs1, hb, timer,
                           "n_shards": bb.engine.cfg.n_shards,
                           "mode": mode, "front_end": fe, "dedup": dedup,
                           "batch": B,
-                          **step_time(bb.step(fe, mode=mode, dedup=dedup),
+                          **step_time(serve_step(bb, fe, mode=mode,
+                                                 dedup=dedup),
                                       st, sub)})
     if cfg.name == "rmc4":
         maint.append(maintenance_phase(b4, state4, cfg, storage))
@@ -1578,21 +1622,16 @@ def maintenance_phase(b, state0, cfg, storage) -> dict:
     stay bitwise equal across each re-plan."""
     from repro_torch.core.paging import HOT_SHARD, host
     from repro_torch.core.planner import plan
-    from repro_torch.launch import serve as srv
-    from repro_torch.launch.serve import pad_batch
-    from repro_torch.serving.batcher import Bucket
 
     eng = b.engine
     b.state = state0
     # the hot set drifts after the first 16 batches' 512 requests
-    stream = srv.request_stream(cfg, 2 * 16 * 32, seed=2, storage=storage,
-                                drift_every=16 * 32)
+    reqs = stream(cfg, 2 * 16 * 32, 2, storage, drift_every=16 * 32)
     out = {"arch": "rmc4", "storage": storage,
            "n_shards": eng.cfg.n_shards, "replans": []}
     for half in range(2):
-        batches = [pad_batch(stream[(half * 16 + i) * 32:
-                                    (half * 16 + i + 1) * 32],
-                             Bucket(32, cfg.pooling), eng.device)
+        batches = [pad_batch(cfg, reqs[(half * 16 + i) * 32:
+                                      (half * 16 + i + 1) * 32], 32)
                    for i in range(16)]
         t = time.perf_counter()
         for bt in batches:
@@ -1641,6 +1680,166 @@ def maintenance_phase(b, state0, cfg, storage) -> dict:
     return out
 
 
+# --------------------------------------------------------- runtime phase
+RT_SIZES, RT_SLO_MS, RT_QPS, RT_N = (8, 16, 32), 50.0, 200.0, 1024
+RT_PIN = dict(base_s=2e-3, per_row_s=1e-4)   # the pinned service model
+RT_ROWS = ("masked_sls", "dot_interaction", "fused_front_end",
+           "masked_sls_dedup", "fused_front_end_dedup", "fused_partial_pool",
+           "fused_partial_pool_dedup", "fused_resume")   # rows 1, 3-9
+
+
+def runtime_run(cfg, storage="fp32", front_end="split", dedup="off",
+                n_shards=1, impl="cuda", n=RT_N, qps=RT_QPS,
+                arrival="poisson", poolings=(), users=0, pin=False) -> dict:
+    """One ``run_offered_load`` on the card through the dynamic batcher
+    (buckets of batch 8, 16 and 32, SLO 50 ms, observe every 4 batches,
+    re-plan every 64), with measured service times, or with ``pin`` the
+    pinned ``FixedServiceModel``.  Checks the run's counts and scores;
+    returns its printed line, the scores by rid and the flush trace."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.batcher import FixedServiceModel
+    from repro_torch.serving.loadgen import LoadConfig
+    from repro_torch.serving.request import ArrivalConfig
+
+    load = LoadConfig(n, ArrivalConfig(qps, process=arrival, seed=0),
+                      slo_ms=RT_SLO_MS, poolings=poolings, seed=0,
+                      storage=storage, dedup=dedup, front_end=front_end)
+    t0 = time.perf_counter()
+    rt, b = srv.build_serving(
+        cfg, "cuda", impl=impl, batch_sizes=RT_SIZES, poolings=poolings,
+        slo_ms=RT_SLO_MS, storage=storage, dedup=dedup, front_end=front_end,
+        n_shards=n_shards, service=FixedServiceModel(**RT_PIN) if pin
+        else None)
+    s = srv.run_offered_load(rt, b, cfg, load, closed_loop_users=users)
+    wall = time.perf_counter() - t0
+    tag = (f"runtime {cfg.name} {storage} {front_end} dedup={dedup} "
+           f"S={n_shards} impl={impl} {arrival} qps={qps:.0f} "
+           f"users={users} pin={pin}")
+    check(s["served"] == n and s["dropped"] == s["failed"] == 0,
+          f"{tag}: served {s['served']} of {n}, dropped {s['dropped']}, "
+          f"failed {s['failed']}")
+    check(s["steady_traces"] == 0,
+          f"{tag}: {s['steady_traces']} signatures new after warmup")
+    check(s["batches"] < 64 or s["replans"] >= 1,
+          f"{tag}: {s['batches']} batches and no re-plan")
+    scores = np.asarray([rt.executor.scores[i] for i in range(n)],
+                        np.float32)
+    check(bool(np.isfinite(scores).all() and (scores > 0).all()
+               and (scores < 1).all()), f"{tag}: scores not finite in (0, 1)")
+    line = {"arch": cfg.name, "storage": storage, "front_end": front_end,
+            "dedup": dedup, "n_shards": n_shards, "impl": impl,
+            "arrival": arrival, "offered_qps": qps, "users": users,
+            "poolings": list(poolings) or [cfg.pooling], "requests": n,
+            "pinned": pin,
+            **{k: s[k] for k in ("served", "batches", "p50_ms", "p99_ms",
+                                 "p99.9_ms", "qps", "goodput_qps",
+                                 "slo_violation_rate",
+                                 "batch_occupancy_mean", "queue_wait_p99_ms",
+                                 "bucket_mix", "replans", "steady_traces",
+                                 "warmup_service_ms", "maintenance_s")},
+            "service_ms": {f"{k.batch}x{k.pooling}":
+                           rt.service_model.estimate(k) * 1e3
+                           for k in rt.batcher.buckets()},
+            "wall_s": wall}
+    trace = [(r.t, r.bucket.batch, r.bucket.pooling, r.n_real)
+             for r in rt.metrics.batches]
+    del rt, b
+    torch.cuda.empty_cache()
+    return {"line": line, "scores": scores, "trace": trace}
+
+
+def runtime_phase() -> tuple:
+    """Phase 8: ``serve_offered_load``'s path (``build_serving`` +
+    ``run_offered_load``) on the card at RMC1 and RMC4's published widths,
+    launch counts zeroed just before and read just after.  Measured runs:
+    Poisson at 200 qps (fp32 and int8, split and fused), Poisson at half
+    the rate the batch-32 bucket sustains (32 / its warmup service time;
+    fp32 fused, 4096 requests), bursty MMPP-2 at 200 qps with poolings 2,
+    4 and 8 (split and fused), 64 closed-loop users (fused); at RMC1 also
+    dedup on (split and fused) and 4 shards fused, dedup off and on.
+    Under one pinned ``FixedServiceModel``: the kernel path and the plain
+    path give the same flush trace and scores within 1e-5, fused == split
+    and dedup on == off bitwise per request."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    lines = []
+
+    def measured(cfg, **kw):
+        r = runtime_run(cfg, **kw)
+        lines.append(r["line"])
+        print("runtime " + json.dumps(r["line"]), flush=True)
+        return r
+
+    def same(a, b, what, bitwise=True):
+        check(a["trace"] == b["trace"], f"{what}: flush traces differ")
+        if bitwise:
+            assert_equal(torch.from_numpy(a["scores"]),
+                         torch.from_numpy(b["scores"]), what)
+            return 0.0
+        err = float(np.abs(a["scores"] - b["scores"]).max())
+        check(err <= 1e-5, f"{what}: scores differ by {err:.3e} > 1e-5")
+        return err
+
+    t0 = time.perf_counter()
+    build.reset_launches()
+    for arch in ("rmc1", "rmc4"):
+        cfg = get_config(arch)
+        runs = {}
+        for storage in ("fp32", "int8"):
+            for fe in ("split", "fused"):
+                runs[storage, fe] = measured(cfg, storage=storage,
+                                             front_end=fe)
+            pin = {fe: runtime_run(cfg, storage=storage, front_end=fe,
+                                   pin=True) for fe in ("split", "fused")}
+            plain = runtime_run(cfg, storage=storage, impl="torch", pin=True)
+            same(pin["fused"], pin["split"],
+                 f"runtime {arch} {storage}: fused vs split")
+            err = same(pin["split"], plain,
+                       f"runtime {arch} {storage}: kernel vs plain", False)
+            print(f"runtime {arch} {storage}: pinned flush traces equal "
+                  f"({len(plain['trace'])} batches); fused == split bitwise; "
+                  f"kernel vs plain score err {err:.2e}", flush=True)
+            if arch == "rmc1" and storage == "fp32":
+                base = pin
+        warm32 = runs["fp32", "fused"]["line"]["warmup_service_ms"][
+            f"32x{cfg.pooling}"]
+        rate = 0.5 * 32 / (warm32 * 1e-3)
+        print(f"runtime {arch}: batch-32 warmup service {warm32:.4f} ms, "
+              f"high load {rate:.0f} qps", flush=True)
+        high = measured(cfg, front_end="fused", n=4 * RT_N, qps=rate)
+        mix = high["line"]["bucket_mix"]
+        check(any(not k.startswith("8x") for k in mix),
+              f"runtime {arch} high load: no coalescing, {mix}")
+        for fe in ("split", "fused"):
+            measured(cfg, front_end=fe, arrival="bursty", poolings=(2, 4, 8))
+        measured(cfg, front_end="fused", users=64)
+        if arch != "rmc1":
+            continue
+        for fe in ("split", "fused"):
+            measured(cfg, front_end=fe, dedup="on")
+            same(runtime_run(cfg, front_end=fe, dedup="on", pin=True),
+                 base[fe], f"runtime rmc1 {fe}: dedup on vs off")
+        shards = {}
+        for d in ("off", "on"):
+            measured(cfg, front_end="fused", dedup=d, n_shards=TP)
+            shards[d] = runtime_run(cfg, front_end="fused", dedup=d,
+                                    n_shards=TP, pin=True)
+        same(shards["on"], shards["off"],
+             f"runtime rmc1 S={TP} fused: dedup on vs off")
+        e4 = same(shards["off"], base["fused"],
+                  f"runtime rmc1 fused: S={TP} vs one shard", False)
+        print(f"runtime rmc1: dedup on == off bitwise (1 and {TP} shards); "
+              f"{TP} shards vs one within {e4:.2e}", flush=True)
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    for k in RT_ROWS:
+        check(launches[k] > 0, f"runtime phase: kernel {k} not launched")
+    print(f"runtime phase: {len(lines)} measured runs in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return lines, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU",
@@ -1673,6 +1872,9 @@ def main() -> None:
     kernel_phase(gen)
     timer = Timer()
     launches, details, steps, dedup_lines, maint = slice_phase(timer)
+    del timer                   # its 256 MB flush buffer
+    torch.cuda.empty_cache()
+    _, rt_launches = runtime_phase()
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
@@ -1704,6 +1906,7 @@ def main() -> None:
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "runtime_launches": rt_launches[k.name],
             "shape": f"rmc4 fp32 batch 2048 ({row}, "
                      f"{d.get('n_shards', 1)} shard(s))"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

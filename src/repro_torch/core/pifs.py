@@ -111,6 +111,8 @@ class PIFSEmbeddingEngine:
         self._dedup_plans: dict = {}   # key -> dedup resolution record
         self._fe_plans: dict = {}      # key -> front-end resolution record
         self._calls = 0                # lookups since reset_plan_stats
+        self._seen: set = set()        # lookup / interact signatures served
+        self._traces = 0               # of them, first seen since the reset
 
     @property
     def quantized(self) -> bool:
@@ -248,8 +250,10 @@ class PIFSEmbeddingEngine:
     # ---------------------------------------------------------------- lookup
     def _check_ids(self, indices: torch.Tensor) -> None:
         """Strict-mode guard: raise on ids outside the padded address
-        space (an out-of-range id would serve a clamped row)."""
-        idx = indices.detach().cpu().numpy()
+        space (an out-of-range id would serve a clamped row).  Takes a
+        tensor or a host array (``ServeBinding.execute`` checks the host
+        batch before it reaches the card)."""
+        idx = host(indices)
         bad = (idx < 0) | (idx >= self.cfg.padded_rows)
         if bad.any():
             example = int(idx[np.unravel_index(np.argmax(bad), idx.shape)])
@@ -295,7 +299,7 @@ class PIFSEmbeddingEngine:
         key = ("lookup", mode, combine, impl, self.cfg.storage, dedup, tiers,
                tuple(indices.shape), weights is not None)
         dedup_on = self._resolve_dedup(key, dedup, state, indices)
-        self._calls += 1
+        self._note_signature(key)
         return self._lookup_block(state, indices, weights, mode=mode,
                                   combine=combine, impl=impl, tiers=tiers,
                                   dedup=dedup_on)
@@ -341,7 +345,7 @@ class PIFSEmbeddingEngine:
         dedup_on = self._resolve_dedup(
             key, dedup, state, indices,
             fused_blocks=None if resolved == "split" else FUSED_BLOCK_B)
-        self._calls += 1
+        self._note_signature(key)
         if resolved == "fused":
             return self._interact_block_fused(state, indices, dense_feature,
                                               weights, impl=impl,
@@ -476,13 +480,25 @@ class PIFSEmbeddingEngine:
                 "unique_hot": unique_hot, "unique_rows": unique_rows,
                 "factor": idx.size / max(unique_rows, 1)}
 
+    def _note_signature(self, key) -> None:
+        self._calls += 1
+        if key not in self._seen:
+            self._seen.add(key)
+            self._traces += 1
+
     def plan_stats(self) -> dict:
-        """Lookups since the last reset (``calls``); one front-end
-        resolution record per ``lookup_interact`` signature under
-        ``'front_end'``; and, once a lookup asked for ``dedup`` 'auto' or
-        'on', one dedup resolution record per such signature under
-        ``'dedup'``."""
-        out = {"calls": self._calls,
+        """Lookups since the last reset (``calls``); the lookup and
+        interact signatures served (``plans``) and those first seen since
+        the last reset (``traces``); one front-end resolution record per
+        ``lookup_interact`` signature under ``'front_end'``; and, once a
+        lookup asked for ``dedup`` 'auto' or 'on', one dedup resolution
+        record per such signature under ``'dedup'``.
+
+        ``traces`` is the port's counterpart of the reference's retrace
+        count: the port compiles nothing per shape, so a signature first
+        seen after serving's warmup is a bucket the warmup missed."""
+        out = {"plans": len(self._seen), "traces": self._traces,
+               "calls": self._calls,
                "front_end": {self._key_label(k): dict(v)
                              for k, v in self._fe_plans.items()}}
         if self._dedup_plans:
@@ -491,13 +507,16 @@ class PIFSEmbeddingEngine:
         return out
 
     def reset_plan_stats(self, clear_plans: bool = False) -> None:
-        """Zero the call counter; ``clear_plans`` also drops the dedup and
-        front-end resolution records, so every signature resolves again
-        (against the histogram as it is then)."""
+        """Zero the call and trace counters; ``clear_plans`` also forgets
+        the signatures seen and drops the dedup and front-end resolution
+        records, so every signature resolves (and counts) again, against
+        the histogram as it is then."""
         if clear_plans:
             self._dedup_plans.clear()
             self._fe_plans.clear()
+            self._seen.clear()
         self._calls = 0
+        self._traces = 0
 
     @staticmethod
     def _key_label(key) -> str:
@@ -724,6 +743,141 @@ class PIFSEmbeddingEngine:
             state.cold, state.hot, x, local_row, owned, is_hot,
             weights=weights, scales=scale, impl=impl, dedup=dedup)
         return sls_ops.fused_resume_dense(part_c, part_h, impl=impl)
+
+
+class ServeBinding:
+    """The serving subsystem's seam onto the engine (the port of the
+    reference's ``ServeBinding``).
+
+    ``repro_torch.serving`` never touches engine internals: it drives this
+    quadruple of (engine, state, model, serve step).  :meth:`execute` runs
+    one bucket-shaped micro-batch and returns only after the card is done;
+    :meth:`observe` / :meth:`replan` fold the paper's live page management
+    (profile -> re-plan -> migration, section IV-B4) into the serving
+    cadence -- lookups are placement-invariant, so a re-plan between
+    micro-batches never perturbs in-flight numerics; and
+    :meth:`plan_stats` exposes the signature count the batcher's bucket set
+    is built around (one signature per bucket, none new once warmed).
+
+    A step is ``step(state, batch) -> (B,) scores`` over a batch of tensors
+    on the engine's device; ``model`` is the module whose parameters the
+    steps close over (the reference's ``params``).  Opt-in seams, off by
+    default:
+
+      * ``steps`` -- named serve-step variants (the brown-out ladder's
+        rungs: split front end, dedup off, hot-tier-only, ...);
+        :meth:`set_mode` switches between them;
+      * ``validate_ids`` -- a host-side check of the batch's ids *before*
+        the step (the lookup would serve a clamped row);
+      * ``scrub_scores`` -- NaN/Inf scores become 0, counted per batch
+        (``last_poisoned``) and in total (``poisoned_rows`` /
+        ``poisoned_batches``).
+
+    The reference's recovery seams (checkpoint restore, elastic re-mesh,
+    streaming updates, integrity ledger) come with ``ROADMAP.md`` queue 1
+    items 11-13."""
+
+    idx_key = "indices"                    # batch entry feeding the profiler
+
+    def __init__(self, engine: PIFSEmbeddingEngine, state: EngineState,
+                 model, step, steps: Optional[dict] = None,
+                 validate_ids: bool = False, scrub_scores: bool = False):
+        self.engine = engine
+        self.state = state
+        self.model = model
+        self.replans = 0
+        # per-bucket duplicate-access accounting, fed by observe() on the
+        # maintenance path (never the timed service path): bucket index
+        # shape -> entries / unique rows over observed batches
+        self.dedup_stats: dict = {}
+        # named serve-step variants; "full" is the configured step
+        self.steps = dict(steps or {})
+        self.steps.setdefault("full", step)
+        self.active = "full"
+        self.validate_ids = validate_ids
+        self.scrub_scores = scrub_scores
+        self.poisoned_rows = 0
+        self.poisoned_batches = 0
+        self.last_poisoned = 0
+
+    def _sync(self) -> None:
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+
+    def _on_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.engine.device)
+
+    # ------------------------------------------------------------ variants
+    def modes(self) -> tuple:
+        """The available serve-step variant labels ('full' first)."""
+        rest = [k for k in self.steps if k != "full"]
+        return ("full",) + tuple(rest)
+
+    def set_mode(self, label: str) -> None:
+        """Switch the active serve-step variant.  Unknown labels fall back
+        to 'full'."""
+        self.active = label if label in self.steps else "full"
+
+    def execute(self, batch: dict) -> torch.Tensor:
+        """Run the active step on a padded host batch (numpy arrays, as the
+        serving padder builds it): check its ids on the host
+        (``validate_ids``), copy it to the engine's device, run the step
+        and wait for the card, so the caller's wall clock around this call
+        is the batch's service time.  Returns the (B,) scores on the
+        device, non-finite ones zeroed under ``scrub_scores``."""
+        if self.validate_ids:
+            self.engine._check_ids(batch[self.idx_key])
+        tb = {k: self._on_device(v) for k, v in batch.items()}
+        out = self.steps[self.active](self.state, tb)
+        self._sync()
+        self.last_poisoned = 0
+        if self.scrub_scores:
+            finite = torch.isfinite(out)
+            self.last_poisoned = int(out.numel() - int(finite.sum()))
+            if self.last_poisoned:
+                self.poisoned_rows += self.last_poisoned
+                self.poisoned_batches += 1
+                out = torch.where(finite, out, torch.zeros_like(out))
+        return out
+
+    # ---------------------------------------------------------- maintenance
+    def observe(self, batch: dict) -> None:
+        """Add a served batch to the page histogram (pad entries, weight 0,
+        do not count) and its measured duplicate factor to the per-bucket
+        record.  Waits for the card, so the update is charged to
+        maintenance, not to the next batch's service time."""
+        idx, w = batch[self.idx_key], batch.get("weights")
+        self.state = self.engine.observe(
+            self.state, self._on_device(idx),
+            weights=None if w is None else self._on_device(w))
+        self._sync()
+        d = self.engine.dedup_factor(self.state, idx, weights=w)
+        rec = self.dedup_stats.setdefault(
+            tuple(idx.shape), {"batches": 0, "entries": 0, "unique_rows": 0})
+        rec["batches"] += 1
+        rec["entries"] += d["entries"]
+        rec["unique_rows"] += d["unique_rows"]
+
+    def dedup_report(self) -> dict:
+        """Measured per-bucket duplicate factors from the observe cadence:
+        ``{bucket_shape: {batches, entries, unique_rows, factor}}``."""
+        return {"x".join(map(str, shape)): {
+            **rec, "factor": rec["entries"] / max(rec["unique_rows"], 1)}
+            for shape, rec in self.dedup_stats.items()}
+
+    def replan(self) -> dict:
+        """Plan from the histogram and migrate; returns the planner's
+        stats.  Waits for the card, as :meth:`observe` does."""
+        self.state, stats = self.engine.plan_and_migrate(self.state)
+        self._sync()
+        self.replans += 1
+        return stats
+
+    def plan_stats(self) -> dict:
+        return self.engine.plan_stats()
+
+    def reset_plan_stats(self) -> None:
+        self.engine.reset_plan_stats()
 
 
 def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,

@@ -1,258 +1,208 @@
-"""Serving driver for the DLRM serve path on one device.
+"""Serving entry point: online DLRM inference through ``repro_torch.serving``.
 
-``python -m repro_torch.launch.serve --arch rmc1 --full --storage int8
---front-end fused --requests 512 --batch 32``
+``python -m repro_torch.launch.serve --arch rmc4 --full --qps 200
+--slo-ms 50``
 
-The port of ``repro.launch.serve`` with ``--batcher fixed``: a seeded
-zipfian request stream (the reference's ``serving/loadgen.request_stream``
-ids, bit for bit), a fixed-size batcher with exact padding, and the serve
-step (bottom MLP -> lookup -> interaction -> top MLP -> sigmoid) on the
-card.  Runs on CUDA unless ``--device cpu``.  ``--mode pifs|pond|beacon``
-is the engine's mode (the reference CLI's: every mode, beacon too, gets
-the same hot tier, and the engine serves beacon as pifs); the engine's
-cold-tier shard
-count is :func:`bind_model`'s ``n_shards`` (the reference CLI has no
-flag for it either).
-
-The hot tier starts placed by ``observe`` over a profile of the stream's
-first requests and ``plan_and_migrate``; serving then runs the reference
-runtime's maintenance cadence (``--observe-every 4``, ``--replan-every
-64`` batches), off the batches' service time.  ``--dedup off|auto|on`` is
-the engine's gather-once knob ('auto' is primed from the stream's prefix,
-:func:`prime_dedup_auto`).  Flags of the reference driver that are not
-ported yet (dynamic batcher, streaming updates, scrub, faults, elastic
-re-mesh) raise.
+The port of ``repro.launch.serve``: binds the model to a ``ServeBinding``
+(``core/pifs.py``) on the card (``--device cpu`` for the CPU), generates
+an open- or closed-loop request stream from the trace distributions (the
+reference's streams, bit for bit), warms every shape bucket (afterwards
+no lookup signature is new: ``steady_traces`` is 0), and drives the
+deadline-aware dynamic micro-batcher (``--batcher fixed``: always a full
+batch of ``max(--batch-sizes)``).  The engine's access profiler and
+periodic re-planning (paper section IV-B4) fold into the serving cadence
+between micro-batches (``--observe-every``, ``--replan-every``).
+``--mode pifs|pond|beacon`` is the engine's mode (every mode, beacon too,
+gets the same hot tier, and the engine serves beacon as pifs); the cold
+tier's shard count is :func:`build_serving`'s ``n_shards`` (the
+reference CLI has no flag for its mesh either).  The reference's
+streaming-update, scrub and mesh-fault regimes raise until ``ROADMAP.md``
+queue 1 items 11-13 port them.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import DLRMConfig, get_config, reduced
-from repro_torch.core.pifs import EngineState, PIFSEmbeddingEngine
-from repro_torch.data.traces import TraceConfig, TraceGenerator
-from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import dlrm as dlrm_mod
-from repro_torch.models.params import initialize
-from repro_torch.serving.batcher import (Bucket, FixedBatcher, Flush,
-                                         pad_pooled_indices, stack_feature)
-from repro_torch.serving.request import Request
-
-_DENSE_TAG = 0xD0          # the reference loadgen's dense-feature stream tag
-
-
-def padded_rows(cfg: DLRMConfig, storage: str = "fp32",
-                page_bytes: int = 4096) -> int:
-    """Per-table padded rows: the engine's page rounding (an int8 page of
-    the same bytes holds 4x the rows)."""
-    ps = max(1, page_bytes // (cfg.emb_dim * (1 if storage == "int8"
-                                              else 4)))
-    return -(-cfg.emb_num // ps) * ps
+from repro_torch.core.pifs import ServeBinding
+from repro_torch.device import DeviceLike
+from repro_torch.serving.batcher import (BatcherConfig, DynamicBatcher,
+                                         FixedBatcher, ServiceModel)
+from repro_torch.serving.loadgen import (LoadConfig, bind_model,
+                                         closed_loop_factory,
+                                         dummy_request_factory, make_padder,
+                                         prime_dedup_auto, request_stream)
+from repro_torch.serving.request import ArrivalConfig, Request
+from repro_torch.serving.runtime import (BindingExecutor, ClosedLoopSource,
+                                         OpenLoopSource, RuntimeConfig,
+                                         ServingRuntime)
 
 
-def request_stream(cfg: DLRMConfig, n_requests: int, seed: int = 0,
-                   storage: str = "fp32", distribution: str = "zipfian",
-                   drift_every: int = 256) -> List[Request]:
-    """The reference's DLRM request stream (same seed, same ids and dense
-    features); all requests arrive at t = 0 with no deadline."""
-    gen = TraceGenerator(TraceConfig(
-        n_rows=cfg.emb_num, n_tables=cfg.n_tables, pooling=cfg.pooling,
-        batch=1, distribution=distribution, seed=seed))
-    offs = (np.arange(cfg.n_tables, dtype=np.int64)
-            * padded_rows(cfg, storage))[:, None]
-    reqs = []
-    for i, ids in enumerate(gen.serve_requests(n_requests,
-                                               drift_every=drift_every)):
-        rng = np.random.default_rng([seed, _DENSE_TAG, i])
-        feats = {"dense": rng.normal(size=(cfg.n_dense,)).astype(np.float32),
-                 "indices": (ids + offs).astype(np.int32)}
-        reqs.append(Request(rid=i, arrival_s=0.0, deadline_s=np.inf,
-                            features=feats, pooling=ids.shape[1]))
-    return reqs
+def _not_ported(update_qps: float = 0.0, update_cfg=None,
+                wal_path: Optional[str] = None, scrub: bool = False,
+                mesh_faults: bool = False) -> None:
+    if update_qps > 0 or update_cfg is not None or wal_path:
+        raise NotImplementedError("streaming updates are not ported yet "
+                                  "(ROADMAP.md queue 1 item 11)")
+    if scrub:
+        raise NotImplementedError("--scrub is not ported yet (ROADMAP.md "
+                                  "queue 1 item 12)")
+    if mesh_faults:
+        raise NotImplementedError("--mesh-faults is not ported yet "
+                                  "(ROADMAP.md queue 1 item 13)")
 
 
-@dataclasses.dataclass
-class Binding:
-    """A DLRM bound to its engine and state on one device, with the
-    maintenance seam of the reference's ``ServeBinding``: :meth:`observe`
-    (with the dedup probe), :meth:`dedup_report` and :meth:`replan`.  Each
-    waits for the card before it returns, so maintenance is never charged
-    to the next batch's service time."""
-    cfg: DLRMConfig
-    model: dlrm_mod.DLRM
-    engine: PIFSEmbeddingEngine
-    state: EngineState
-    dedup_stats: Dict[tuple, dict] = dataclasses.field(default_factory=dict)
-
-    def step(self, front_end: str = "split", mode: str = "pifs",
-             impl: str = "cuda", dedup: Optional[str] = None):
-        return dlrm_mod.make_serve_step(self.model, self.engine, mode=mode,
-                                        impl=impl, front_end=front_end,
-                                        dedup=dedup)
-
-    def _sync(self) -> None:
-        if self.engine.device.type == "cuda":
-            torch.cuda.synchronize(self.engine.device)
-
-    def observe(self, batch: Dict[str, torch.Tensor]) -> None:
-        """Add a served batch to the page histogram (pad entries, weight 0,
-        do not count) and its measured duplicate factor to the per-bucket
-        record."""
-        idx, w = batch["indices"], batch.get("weights")
-        self.state = self.engine.observe(self.state, idx, weights=w)
-        self._sync()
-        d = self.engine.dedup_factor(self.state, idx, weights=w)
-        rec = self.dedup_stats.setdefault(
-            tuple(idx.shape), {"batches": 0, "entries": 0, "unique_rows": 0})
-        rec["batches"] += 1
-        rec["entries"] += d["entries"]
-        rec["unique_rows"] += d["unique_rows"]
-
-    def dedup_report(self) -> dict:
-        """Measured per-bucket duplicate factors from the observe cadence:
-        ``{bucket_shape: {batches, entries, unique_rows, factor}}``."""
-        return {"x".join(map(str, shape)): {
-            **rec, "factor": rec["entries"] / max(rec["unique_rows"], 1)}
-            for shape, rec in self.dedup_stats.items()}
-
-    def replan(self) -> dict:
-        """Plan from the histogram and migrate; returns the planner's
-        stats."""
-        self.state, stats = self.engine.plan_and_migrate(self.state)
-        self._sync()
-        return stats
+def build_serving(cfg: DLRMConfig, device: DeviceLike = None, *,
+                  mode: str = "pifs", impl: str = "cuda",
+                  batcher: str = "dynamic",
+                  batch_sizes: Tuple[int, ...] = (8, 16, 32),
+                  poolings: Tuple[int, ...] = (),
+                  slo_ms: float = 50.0, hot_fraction: float = 0.05,
+                  storage: str = "fp32", dedup: str = "off",
+                  front_end: str = "split",
+                  runtime_cfg: RuntimeConfig = RuntimeConfig(),
+                  validate_ids: bool = False, n_shards: int = 1,
+                  service: Optional[ServiceModel] = None,
+                  ) -> Tuple[ServingRuntime, ServeBinding]:
+    """Compose (runtime, binding) for a config on ``device`` (the card
+    unless ``"cpu"``), its cold tier in ``n_shards`` shards; buckets are
+    warmed by the caller (:func:`run_offered_load`).  The executor is a
+    ``BindingExecutor`` (``runtime.executor.scores``); ``service`` pins its
+    service times to that model's estimates (and seeds the batcher with
+    the same model), so the flush sequence depends on the stream alone."""
+    binding = bind_model(cfg, device, mode=mode, impl=impl,
+                         hot_fraction=hot_fraction, storage=storage,
+                         dedup=dedup, front_end=front_end,
+                         validate_ids=validate_ids, n_shards=n_shards)
+    levels = tuple(sorted(set(poolings))) or (cfg.pooling,)
+    if batcher == "dynamic":
+        b = DynamicBatcher(BatcherConfig(
+            batch_sizes=tuple(sorted(batch_sizes)), poolings=levels,
+            max_wait_ms=slo_ms / 2))
+    elif batcher == "fixed":
+        b = FixedBatcher(batch=max(batch_sizes), pooling=levels[-1])
+    else:
+        raise ValueError(f"unknown batcher {batcher!r}")
+    runtime = ServingRuntime(
+        BindingExecutor(binding, make_padder(cfg), service), b,
+        cfg=runtime_cfg, service_model=service)
+    return runtime, binding
 
 
-def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
-               storage: str = "fp32", seed: int = 0,
-               hot_fraction: float = 0.05,
-               profile: Sequence[Request] = (),
-               dedup: str = "off", n_shards: int = 1) -> Binding:
-    """Engine + random weights + state on ``device`` (the card unless
-    ``"cpu"``).  Tables and weights are drawn from generators seeded with
-    ``seed``, on the device itself.  ``profile`` places the hot tier:
-    ``observe`` over its requests, then ``plan_and_migrate``; with no
-    profile the hot tier is empty.  ``dedup`` is the engine default;
-    ``n_shards`` the cold tier's shards (the reference's tp), all on
-    ``device``."""
-    dev = resolve_device(device)
-    engine, _ = dlrm_mod.build_engine(cfg, dev, hot_fraction=hot_fraction,
-                                      storage=storage, dedup=dedup,
-                                      n_shards=n_shards)
-    gen = torch.Generator(device=dev)
-    model = initialize(dlrm_mod.DLRM(cfg, dev), gen.manual_seed(seed))
-    state = engine.init_state(gen.manual_seed(seed + 1))
-    if profile:
-        idx = np.stack([r.features["indices"] for r in profile])
-        state = engine.observe(state, torch.as_tensor(idx, device=dev))
-        state, _ = engine.plan_and_migrate(state)
-    return Binding(cfg, model, engine, state)
+def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
+                     cfg: DLRMConfig, load: LoadConfig,
+                     closed_loop_users: int = 0) -> Dict[str, object]:
+    """Warm every bucket, serve the stream, and report the runtime's
+    summary plus the steady-state signature count (``steady_traces``,
+    which must be 0), the re-plans taken while serving, the front-end and
+    dedup resolutions, the measured per-bucket dedup factors, and (this
+    port only) each bucket's warmup service time
+    (``warmup_service_ms``)."""
+    dummies = dummy_request_factory(cfg, storage=load.storage)
+    warm = runtime.warmup(dummies)
+    # the open-loop stream is only materialised when something uses it
+    # (the serving source, or the 'auto' priming prefix)
+    reqs = (request_stream(cfg, load)
+            if load.dedup == "auto" or closed_loop_users <= 0 else None)
+    if load.dedup == "auto" and prime_dedup_auto(binding, reqs):
+        # 'auto' resolves at a signature's first lookup: prime the profiler
+        # with a prefix of the live stream, then resolve the buckets again
+        # against the primed histogram (still before steady state)
+        warm = runtime.warmup(dummies)
+    binding.reset_plan_stats()        # steady state begins here
+    binding.dedup_stats.clear()       # drop warmup-dummy observations
+    warm_replans = binding.replans
+    if closed_loop_users > 0:
+        source = ClosedLoopSource(
+            closed_loop_users, load.n_requests,
+            closed_loop_factory(cfg, load),
+            think_time_s=closed_loop_users / load.arrival.rate_qps)
+    else:
+        source = OpenLoopSource(reqs)
+    summary = runtime.run(source)
+    stats = binding.plan_stats()
+    summary["steady_traces"] = stats["traces"]
+    summary["plans"] = stats["plans"]
+    summary["front_end"] = stats.get("front_end", {})
+    summary["replans"] = binding.replans - warm_replans
+    summary["dedup_factors"] = binding.dedup_report()
+    summary["warmup_service_ms"] = {k: v * 1e3 for k, v in warm.items()}
+    return summary
 
 
-def prime_dedup_auto(binding: Binding, requests: Sequence[Request],
-                     n: int = 64) -> int:
-    """Prime ``dedup='auto'`` from the stream's prefix: observe the first
-    ``n`` requests one by one (maintenance path), set the engine's
-    measured-factor hint from their stacked replay, and drop the dedup
-    resolution records so every signature resolves again against the
-    primed histogram (the port compiles nothing, so there are no plans to
-    drop).  Returns the number of requests observed."""
-    engine = binding.engine
-    seen = 0
-    by_pooling: dict = {}
-    for r in requests[:n]:
-        feats = np.asarray(r.features["indices"])
-        binding.observe({"indices": torch.as_tensor(
-            feats[None], device=engine.device)})
-        by_pooling.setdefault(feats.shape[-1], []).append(feats)
-        seen += 1
-    if seen:
-        entries = uniques = 0
-        for feats_list in by_pooling.values():
-            d = engine.dedup_factor(binding.state, np.stack(feats_list))
-            entries += d["entries"]
-            uniques += d["unique_rows"]
-        engine.dedup_auto_hint = entries / max(uniques, 1)
-        engine.reset_plan_stats(clear_plans=True)
-        binding.dedup_stats.clear()
-    return seen
+def serve_offered_load(cfg: DLRMConfig, load: LoadConfig, *,
+                       device: DeviceLike = None, mode: str = "pifs",
+                       impl: str = "cuda", batcher: str = "dynamic",
+                       batch_sizes: Tuple[int, ...] = (8, 16, 32),
+                       hot_fraction: float = 0.05,
+                       runtime_cfg: RuntimeConfig = RuntimeConfig(),
+                       closed_loop_users: int = 0,
+                       validate_ids: bool = False, n_shards: int = 1,
+                       update_cfg=None, wal_path: Optional[str] = None,
+                       mesh_faults: bool = False, scrub: bool = False,
+                       ) -> Dict[str, object]:
+    """End to end: bind, warm every bucket, serve the stream, and report
+    metrics and the steady-state signature count (must be 0).  The
+    engine's cold-tier storage rides in ``load.storage`` (the request
+    streams need it for the tables' page-rounded offsets), the gather-once
+    knob in ``load.dedup``, the front end in ``load.front_end``.
+    ``device`` and ``n_shards`` take the place of the reference's mesh.
+    The streaming-update (``load.update_qps``, ``update_cfg``,
+    ``wal_path``), scrub and mesh-fault regimes raise until ``ROADMAP.md``
+    queue 1 items 11, 12 and 13 port them."""
+    _not_ported(load.update_qps, update_cfg, wal_path, scrub, mesh_faults)
+    runtime, binding = build_serving(
+        cfg, device, mode=mode, impl=impl, batcher=batcher,
+        batch_sizes=batch_sizes, poolings=load.poolings, slo_ms=load.slo_ms,
+        hot_fraction=hot_fraction, storage=load.storage, dedup=load.dedup,
+        front_end=load.front_end, runtime_cfg=runtime_cfg,
+        validate_ids=validate_ids, n_shards=n_shards)
+    return run_offered_load(runtime, binding, cfg, load, closed_loop_users)
 
 
-def pad_batch(reqs: Sequence[Request], bucket: Bucket,
-              device: torch.device) -> Dict[str, torch.Tensor]:
-    idx, w = pad_pooled_indices(reqs, bucket)
-    dense = stack_feature(reqs, bucket, "dense")
-    return {"dense": torch.as_tensor(dense).to(device),
-            "indices": torch.as_tensor(idx).to(device),
-            "weights": torch.as_tensor(w).to(device)}
-
-
-def serve(binding: Binding, step, requests: Sequence[Request],
-          batch: int, observe_every: int = 4, replan_every: int = 64
-          ) -> dict:
-    """Drive ``requests`` through a fixed batcher and ``step``, with the
-    reference runtime's maintenance cadence: ``binding.observe`` after
-    every ``observe_every``-th batch and ``binding.replan`` after every
-    ``replan_every``-th (0 = never).  Returns the scores in request order,
-    the per-batch service times (host clock around padding, the step and
-    the copy back, which waits for the device) and the maintenance times
-    apart."""
-    batcher = FixedBatcher(batch, binding.cfg.pooling)
-    dev = binding.engine.device
-    scores = np.empty(len(requests), np.float32)
-    service_ms: List[float] = []
-    maint_ms: Dict[str, List[float]] = {"observe": [], "replan": []}
-    queue: List[Request] = []
-    done = 0                  # the batcher flushes in arrival order
-    for i, r in enumerate(requests):
-        queue.append(r)
-        nxt = requests[i + 1].arrival_s if i + 1 < len(requests) else None
-        decision = batcher.decide(r.arrival_s, queue, nxt)
-        while isinstance(decision, Flush):
-            reqs, queue = queue[:decision.count], queue[decision.count:]
-            t0 = time.perf_counter()
-            padded = pad_batch(reqs, decision.bucket, dev)
-            out = step(binding.state, padded)
-            got = out[:decision.count].cpu().numpy()
-            service_ms.append((time.perf_counter() - t0) * 1e3)
-            scores[done:done + decision.count] = got
-            done += decision.count
-            n = len(service_ms)
-            if observe_every and n % observe_every == 0:
-                t0 = time.perf_counter()
-                binding.observe(padded)
-                maint_ms["observe"].append((time.perf_counter() - t0) * 1e3)
-            if replan_every and n % replan_every == 0:
-                t0 = time.perf_counter()
-                binding.replan()
-                maint_ms["replan"].append((time.perf_counter() - t0) * 1e3)
-            decision = batcher.decide(r.arrival_s, queue, nxt)
-    ms = np.asarray(service_ms)
-    return {"scores": scores, "service_ms": ms, "batches": len(ms),
+def serve(binding: ServeBinding, step, requests: Sequence[Request],
+          batch: int, observe_every: int = 4, replan_every: int = 64,
+          service: Optional[ServiceModel] = None) -> dict:
+    """Serve ``requests`` through ``step`` (a ``make_serve_step`` of the
+    binding's model and engine, made the binding's active variant for the
+    run) with a fixed batcher of ``batch`` and the runtime's maintenance
+    cadence, without warmup.  Returns the scores in request order, the
+    per-batch service times (the wall time of ``execute``: copy, step,
+    synchronize; or ``service``'s estimates), their p50 / p99, the
+    requests per second of service time, and the maintenance calls and
+    times."""
+    executor = BindingExecutor(binding, make_padder(binding.model.cfg),
+                               service)
+    runtime = ServingRuntime(
+        executor, FixedBatcher(batch, max(r.pooling for r in requests)),
+        cfg=RuntimeConfig(queue_capacity=len(requests),
+                          observe_every=observe_every,
+                          replan_every=replan_every),
+        service_model=service)
+    active = binding.active
+    binding.steps["serve"] = step
+    binding.set_mode("serve")
+    try:
+        runtime.run(OpenLoopSource(requests))
+    finally:
+        binding.set_mode(active)
+        del binding.steps["serve"]
+    m = runtime.metrics
+    ms = np.asarray([b.service_s * 1e3 for b in m.batches])
+    return {"scores": np.asarray([executor.scores[r.rid] for r in requests],
+                                 np.float32),
+            "service_ms": ms, "batches": len(ms),
             "p50_ms": float(np.percentile(ms, 50)),
             "p99_ms": float(np.percentile(ms, 99)),
             "qps": len(requests) / (ms.sum() * 1e-3),
-            "observes": len(maint_ms["observe"]),
-            "replans": len(maint_ms["replan"]),
-            "maintenance_ms": {k: float(sum(v)) for k, v in
-                               maint_ms.items()}}
-
-
-_NOT_PORTED = {
-    "batcher": ("fixed", "--batcher dynamic is not ported yet (ROADMAP.md "
-                         "queue 1 item 8)"),
-    "update_qps": (0.0, "streaming updates are not ported yet (ROADMAP.md "
-                        "queue 1 item 11)"),
-    "scrub": (False, "--scrub is not ported yet (ROADMAP.md queue 1 item "
-                     "12)"),
-    "mesh_faults": (False, "--mesh-faults is not ported yet (ROADMAP.md "
-                           "queue 1 item 13)"),
-}
+            "observes": m.maintenance_calls.get("observe", 0),
+            "replans": m.maintenance_calls.get("replan", 0),
+            "maintenance_ms": {k: v * 1e3
+                               for k, v in m.maintenance_s.items()}}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -261,58 +211,80 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced "
                          "config of CPU smoke tests)")
-    ap.add_argument("--storage", default="fp32", choices=["fp32", "int8"])
-    ap.add_argument("--front-end", default="split",
-                    choices=["split", "fused"])
+    ap.add_argument("--requests", type=int, default=1024)
+    ap.add_argument("--qps", type=float, default=200.0,
+                    help="offered load (virtual-clock requests/second)")
+    ap.add_argument("--slo-ms", type=float, default=50.0)
     ap.add_argument("--mode", default="pifs",
                     choices=["pifs", "pond", "beacon"])
-    ap.add_argument("--requests", type=int, default=1024)
-    ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--batcher", default="fixed",
-                    choices=["fixed", "dynamic"])
+    ap.add_argument("--storage", default="fp32", choices=["fp32", "int8"])
     ap.add_argument("--dedup", default="off", choices=["off", "auto", "on"],
                     help="gather-once coalescing of duplicate rows")
+    ap.add_argument("--front-end", default="split",
+                    choices=["split", "fused"])
+    ap.add_argument("--batcher", default="dynamic",
+                    choices=["dynamic", "fixed"])
+    ap.add_argument("--batch-sizes", type=int, nargs="+",
+                    default=[8, 16, 32])
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "bursty", "uniform"])
+    ap.add_argument("--closed-loop-users", type=int, default=0,
+                    help="> 0 switches to a closed-loop load of N users")
+    ap.add_argument("--validate-ids", action="store_true",
+                    help="raise on out-of-range embedding ids (checked on "
+                         "the host) instead of serving the clamped row")
+    ap.add_argument("--update-qps", type=float, default=0.0)
+    ap.add_argument("--scrub", action="store_true")
+    ap.add_argument("--mesh-faults", action="store_true")
     ap.add_argument("--observe-every", type=int, default=4,
                     help="batches between histogram updates (0 = off)")
     ap.add_argument("--replan-every", type=int, default=64,
                     help="batches between re-plans (0 = off)")
-    ap.add_argument("--update-qps", type=float, default=0.0)
-    ap.add_argument("--scrub", action="store_true")
-    ap.add_argument("--mesh-faults", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    for flag, (default, msg) in _NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(msg)
+    _not_ported(args.update_qps, scrub=args.scrub,
+                mesh_faults=args.mesh_faults)
 
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced(cfg)
-    reqs = request_stream(cfg, args.requests, seed=args.seed,
-                          storage=args.storage)
-    # every mode, beacon too, gets the hot tier the reference CLI gives it
-    # (hot_fraction=0.05, serve_offered_load's default); its datapath
-    # serves beacon as pifs
-    binding = bind_model(cfg, args.device, storage=args.storage,
-                         seed=args.seed, hot_fraction=0.05,
-                         profile=reqs[: max(1, len(reqs) // 4)],
-                         dedup=args.dedup)
-    if args.dedup == "auto":
-        prime_dedup_auto(binding, reqs)
-    out = serve(binding, binding.step(args.front_end, args.mode), reqs,
-                args.batch, observe_every=args.observe_every,
-                replan_every=args.replan_every)
-    out["device"] = (torch.cuda.get_device_name(binding.engine.device)
-                     if binding.engine.device.type == "cuda" else "cpu")
+    load = LoadConfig(
+        n_requests=args.requests,
+        arrival=ArrivalConfig(rate_qps=args.qps, process=args.arrival,
+                              seed=args.seed),
+        slo_ms=args.slo_ms, seed=args.seed, storage=args.storage,
+        dedup=args.dedup, front_end=args.front_end)
+    # every mode, beacon too, gets the reference CLI's hot tier
+    # (hot_fraction=0.05); the engine serves beacon as pifs
+    runtime, binding = build_serving(
+        cfg, args.device, mode=args.mode, batcher=args.batcher,
+        batch_sizes=tuple(args.batch_sizes), slo_ms=args.slo_ms,
+        hot_fraction=0.05, storage=args.storage, dedup=args.dedup,
+        front_end=args.front_end, validate_ids=args.validate_ids,
+        runtime_cfg=RuntimeConfig(observe_every=args.observe_every,
+                                  replan_every=args.replan_every))
+    out = run_offered_load(runtime, binding, cfg, load,
+                           closed_loop_users=args.closed_loop_users)
+    scores = runtime.executor.scores
+    out["scores"] = np.asarray([scores[i] for i in range(args.requests)
+                                if i in scores], np.float32)
     out["scores_finite"] = bool(np.isfinite(out["scores"]).all())
-    stats = binding.engine.plan_stats()
-    out["front_end"] = stats["front_end"]
-    out["dedup"] = stats.get("dedup", {})
-    out["dedup_factors"] = binding.dedup_report()
+    out["dedup"] = binding.plan_stats().get("dedup", {})
+    dev = binding.engine.device
+    out["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")
+    hidden = ("scores", "latency_hist", "front_end", "dedup_factors")
     for k, v in out.items():
-        if k not in ("scores", "service_ms"):
+        if k not in hidden:
             print(f"  {k:24s} {v}")
+    for label, rec in out["front_end"].items():
+        print(f"  front_end[{label}]  requested={rec['requested']} "
+              f"resolved={rec['resolved']} (tp={rec['tp']})")
+    for bucket, rec in out["dedup_factors"].items():
+        print(f"  dedup[{bucket}]  factor={rec['factor']:.2f} "
+              f"({rec['entries']} entries -> {rec['unique_rows']} unique "
+              f"rows over {rec['batches']} observed batches)")
     return out
 
 

@@ -1,0 +1,246 @@
+"""Load generation and model-binding glue for the serving runtime.
+
+The DLRM half of ``repro.serving.loadgen``: it builds the
+``ServeBinding`` (engine + model + serve steps) for a config on one
+device, provides the request -> bucket padder, fabricates warmup dummies,
+and turns the trace distributions (``repro_torch.data.traces``) into
+per-request open-loop or closed-loop streams with SLO deadlines attached
+-- the reference's streams, bit for bit.
+
+Request features are host numpy, one example each: ``dense (n_dense,)``
+and ``indices (T, L_r)`` (global row ids, variable per-request pooling
+``L_r``).  The Rec-family padders and factories come with ``ROADMAP.md``
+queue 1 item 14.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DLRMConfig
+from repro_torch.core.pifs import ServeBinding
+from repro_torch.data.traces import TraceConfig, TraceGenerator
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import dlrm as dlrm_mod
+from repro_torch.models.params import initialize
+from repro_torch.serving.batcher import (Bucket, pad_pooled_indices,
+                                         stack_feature)
+from repro_torch.serving.request import ArrivalConfig, Request, arrival_times
+
+_DENSE_TAG = 0xD0
+
+
+@dataclasses.dataclass(frozen=True)
+class LoadConfig:
+    """One offered-load experiment: how many requests, arriving how, with
+    what SLO budget and per-request pooling mix."""
+    n_requests: int
+    arrival: ArrivalConfig
+    slo_ms: float = 50.0
+    poolings: Tuple[int, ...] = ()       # pooling choices; () = fixed
+    distribution: str = "zipfian"
+    drift_every: int = 256               # serve-stream hot-set churn period
+    seed: int = 0
+    storage: str = "fp32"                # engine cold-tier storage; table
+    #                                      offsets depend on its page size
+    dedup: str = "off"                   # gather-once duplicate coalescing
+    #                                      (off/auto/on; bit-exact either way)
+    front_end: str = "split"             # lookup -> interaction pipeline:
+    #                                      'fused' resolves the single-kernel
+    #                                      front end, or 'fused_tp' (partial
+    #                                      pool -> shard sum -> resume) at
+    #                                      n_shards > 1 and in pond
+    update_qps: float = 0.0              # streaming embedding updates: delta
+    #                                      rows/second on the virtual clock
+    #                                      (0 = no update stream; item 11)
+    update_batch: int = 64               # rows per trainer-emitted delta batch
+
+
+# ---------------------------------------------------------------------------
+# Model binding
+# ---------------------------------------------------------------------------
+
+
+def padded_rows(cfg: DLRMConfig, storage: str = "fp32",
+                page_bytes: int = 4096) -> int:
+    """Per-table padded rows: the engine's page rounding (an int8 page of
+    the same bytes holds 4x the rows)."""
+    ps = max(1, page_bytes // (cfg.emb_dim * (1 if storage == "int8"
+                                              else 4)))
+    return -(-cfg.emb_num // ps) * ps
+
+
+def _dlrm_steps(model, engine, *, mode, impl, dedup, front_end,
+                degraded_variants):
+    """The serve step and, with ``degraded_variants``, the brown-out
+    ladder's variants: ``split_fe`` (split front end, bitwise equal),
+    ``no_dedup`` (split, dedup off, bitwise equal), ``hot_only`` (hot
+    tier only, cold rows zero: scores change) and ``shed`` (the same
+    datapath as hot_only)."""
+    def dlrm_step(**kw):
+        return dlrm_mod.make_serve_step(model, engine, mode=mode, impl=impl,
+                                        **kw)
+    step = dlrm_step(dedup=dedup, front_end=front_end)
+    steps = None
+    if degraded_variants:
+        hot_only = dlrm_step(dedup="off", front_end="split",
+                             tiers="hot_only")
+        steps = {"split_fe": dlrm_step(dedup=dedup, front_end="split"),
+                 "no_dedup": dlrm_step(dedup="off", front_end="split"),
+                 "hot_only": hot_only, "shed": hot_only}
+    return step, steps
+
+
+def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
+               mode: str = "pifs", impl: str = "cuda",
+               hot_fraction: float = 0.05, seed: int = 0,
+               storage: str = "fp32", dedup: str = "off",
+               front_end: str = "split", degraded_variants: bool = False,
+               validate_ids: bool = False, scrub_scores: bool = False,
+               n_shards: int = 1, profile: Sequence[Request] = ()
+               ) -> ServeBinding:
+    """Engine + random weights + state + serve steps for a DLRM config on
+    ``device`` (the card unless ``"cpu"``), as the reference's
+    ``bind_model`` builds them on a mesh.
+
+    ``n_shards`` is the cold tier's shard count (the reference mesh's tp),
+    all on ``device``.  ``mode`` (pifs / pond / beacon), ``impl`` ('cuda':
+    the kernels on the card, the plain versions on CPU tensors; 'torch':
+    the plain versions), ``dedup`` and ``front_end`` configure the serve
+    step; ``degraded_variants`` adds the brown-out rungs
+    (:func:`_dlrm_steps`); ``validate_ids`` / ``scrub_scores`` arm the
+    binding's host-side guards.  Tables and weights are drawn from
+    generators seeded with ``seed``, on the device itself.  ``profile``
+    (this port only) places the hot tier before serving: ``observe`` over
+    its requests, then ``plan_and_migrate``; without it the hot tier
+    starts empty and serving's warmup and maintenance place it."""
+    dev = resolve_device(device)
+    engine, _ = dlrm_mod.build_engine(cfg, dev, hot_fraction=hot_fraction,
+                                      storage=storage, dedup=dedup,
+                                      n_shards=n_shards)
+    gen = torch.Generator(device=dev)
+    model = initialize(dlrm_mod.DLRM(cfg, dev), gen.manual_seed(seed))
+    state = engine.init_state(gen.manual_seed(seed + 1))
+    if profile:
+        idx = np.stack([r.features["indices"] for r in profile])
+        state = engine.observe(state, torch.as_tensor(idx, device=dev))
+        state, _ = engine.plan_and_migrate(state)
+    step, steps = _dlrm_steps(model, engine, mode=mode, impl=impl,
+                              dedup=dedup, front_end=front_end,
+                              degraded_variants=degraded_variants)
+    return ServeBinding(engine, state, model, step, steps=steps,
+                        validate_ids=validate_ids, scrub_scores=scrub_scores)
+
+
+def make_padder(cfg: DLRMConfig
+                ) -> Callable[[Sequence[Request], Bucket], dict]:
+    """Request list -> bucket-shaped host batch."""
+    if not isinstance(cfg, DLRMConfig):
+        raise TypeError(f"unsupported serving config {type(cfg)}")
+
+    def pad_dlrm(reqs, bucket):
+        idx, w = pad_pooled_indices(reqs, bucket)
+        return {"dense": stack_feature(reqs, bucket, "dense"),
+                "indices": idx, "weights": w}
+    return pad_dlrm
+
+
+# ---------------------------------------------------------------------------
+# Request fabrication
+# ---------------------------------------------------------------------------
+
+
+def _dlrm_features(cfg: DLRMConfig, ids: np.ndarray, rid: int,
+                   seed: int, storage: str = "fp32") -> dict:
+    # global-row offsets follow the engine's page rounding, which depends
+    # on the cold-tier storage format (int8 pages hold 4x the rows)
+    offs = (np.arange(cfg.n_tables, dtype=np.int64)
+            * padded_rows(cfg, storage=storage))[:, None]
+    rng = np.random.default_rng([seed, _DENSE_TAG, rid])
+    return {"dense": rng.normal(size=(cfg.n_dense,)).astype(np.float32),
+            "indices": (ids + offs).astype(np.int32)}
+
+
+def _serve_ids(cfg: DLRMConfig, load: LoadConfig, n):
+    gen = TraceGenerator(TraceConfig(
+        n_rows=cfg.emb_num, n_tables=cfg.n_tables, pooling=cfg.pooling,
+        batch=1, distribution=load.distribution, seed=load.seed))
+    return gen.serve_requests(n, poolings=load.poolings or None,
+                              drift_every=load.drift_every)
+
+
+def request_stream(cfg: DLRMConfig, load: LoadConfig) -> List[Request]:
+    """Materialise an open-loop request list (arrival times + features)."""
+    times = arrival_times(load.arrival, load.n_requests)
+    slo_s = load.slo_ms * 1e-3
+    return [Request(rid=i, arrival_s=float(times[i]),
+                    deadline_s=float(times[i]) + slo_s,
+                    features=_dlrm_features(cfg, ids, i, load.seed,
+                                            storage=load.storage),
+                    pooling=ids.shape[1])
+            for i, ids in enumerate(_serve_ids(cfg, load, load.n_requests))]
+
+
+def closed_loop_factory(cfg: DLRMConfig, load: LoadConfig
+                        ) -> Callable[[int, int, float], Request]:
+    """Request factory for ``ClosedLoopSource`` (the open-loop stream's
+    features, arrival set by the completion that frees the virtual
+    user)."""
+    slo_s = load.slo_ms * 1e-3
+    it = _serve_ids(cfg, load, None)
+
+    def make_dlrm(rid: int, user: int, arrival_s: float) -> Request:
+        ids = next(it)
+        return Request(rid=rid, arrival_s=arrival_s,
+                       deadline_s=arrival_s + slo_s,
+                       features=_dlrm_features(cfg, ids, rid, load.seed,
+                                               storage=load.storage),
+                       pooling=ids.shape[1], user=user)
+    return make_dlrm
+
+
+def prime_dedup_auto(binding: ServeBinding, requests: Sequence[Request],
+                     n: int = 64) -> int:
+    """Prime the engine's access histogram for serving ``dedup='auto'``.
+
+    'auto' resolves once per signature, at its first lookup -- for a
+    serving runtime that is during bucket warmup, before live traffic has
+    reached the histogram.  This observes the first ``n`` requests one by
+    one (maintenance path), sets the engine's measured-factor hint from
+    their stacked replay, and drops the resolution records and the seen
+    signatures, so the caller's re-warmup resolves every bucket again
+    against the primed histogram before steady state.  Returns the number
+    of requests observed."""
+    engine = binding.engine
+    seen = 0
+    by_pooling: dict = {}
+    for r in requests[:n]:
+        feats = np.asarray(r.features[binding.idx_key])
+        binding.observe({binding.idx_key: feats[None]})
+        by_pooling.setdefault(feats.shape[-1], []).append(feats)
+        seen += 1
+    if seen:
+        entries = uniques = 0
+        for feats_list in by_pooling.values():
+            d = engine.dedup_factor(binding.state, np.stack(feats_list))
+            entries += d["entries"]
+            uniques += d["unique_rows"]
+        engine.dedup_auto_hint = entries / max(uniques, 1)
+        engine.reset_plan_stats(clear_plans=True)
+        binding.dedup_stats.clear()
+    return seen
+
+
+def dummy_request_factory(cfg: DLRMConfig, storage: str = "fp32"
+                          ) -> Callable[[int, int], Request]:
+    """Fabricate bucket-warmup dummies (valid ids, seeded features)."""
+    def make_dlrm(rid: int, pooling: int) -> Request:
+        ids = np.zeros((cfg.n_tables, pooling), dtype=np.int64)
+        return Request(rid=-1 - rid, arrival_s=0.0, deadline_s=1e9,
+                       features=_dlrm_features(cfg, ids, 0, 0,
+                                               storage=storage),
+                       pooling=pooling)
+    return make_dlrm

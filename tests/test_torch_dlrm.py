@@ -7,8 +7,6 @@ Scores match within 1e-6 absolute / 1e-5 relative: lookups are bitwise
 equal (serve weights are 0/1), but XLA and torch reduce the interaction
 dots and the MLP products over their inner dimension in different orders.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +22,23 @@ from repro.models.layers import mlp_apply
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.paging import HOT_SHARD, PageTable
+from repro_torch.core.pifs import ServeBinding
 from repro_torch.launch import serve as srv
 from repro_torch.models import dlrm
 from repro_torch.models.layers import MLP
+from repro_torch.serving import loadgen
+from repro_torch.serving.request import ArrivalConfig
 
 B = 12
+
+
+def _stream(cfg, n, seed, storage="fp32"):
+    return loadgen.request_stream(cfg, loadgen.LoadConfig(
+        n, ArrivalConfig(200.0, seed=seed), seed=seed, storage=storage))
+
+
+def _step(b, front_end):
+    return dlrm.make_serve_step(b.model, b.engine, front_end=front_end)
 
 
 @pytest.fixture(scope="module")
@@ -126,19 +136,19 @@ def test_serving_driver_end_to_end_fused_matches_split():
     test copies none of its assertions."""
     cfg = reduced(get_config("rmc1"))
     for storage in ("fp32", "int8"):
-        reqs = srv.request_stream(cfg, 40, seed=5, storage=storage)
-        b = srv.bind_model(cfg, "cpu", storage=storage, seed=5,
-                           profile=reqs[:10])
+        reqs = _stream(cfg, 40, seed=5, storage=storage)
+        b = loadgen.bind_model(cfg, "cpu", storage=storage, seed=5,
+                               profile=reqs[:10])
         hot = int((b.state.page_to_shard == HOT_SHARD).sum())
         assert hot == b.engine.cfg.hot_pages
-        out = {fe: srv.serve(b, b.step(fe), reqs, 16)
+        out = {fe: srv.serve(b, _step(b, fe), reqs, 16)
                for fe in ("split", "fused")}
         assert out["split"]["batches"] == 3           # 16 + 16 + 8 (drain)
         s = out["split"]["scores"]
         assert np.isfinite(s).all() and (s > 0).all() and (s < 1).all()
         np.testing.assert_array_equal(s, out["fused"]["scores"])
         # the padded drain batch scores its 8 requests like a full batch
-        solo = srv.serve(b, b.step("split"), reqs[32:], 16)["scores"]
+        solo = srv.serve(b, _step(b, "split"), reqs[32:], 16)["scores"]
         np.testing.assert_array_equal(solo, s[32:])
 
 
@@ -147,8 +157,8 @@ def test_serving_driver_end_to_end_fused_matches_split():
                                    "int8"],
                                   ["--mode", "beacon"]])
 def test_serve_cli_on_cpu(argv, capsys):
-    out = srv.main(["--device", "cpu", "--requests", "24", "--batch", "8",
-                    *argv])
+    out = srv.main(["--device", "cpu", "--requests", "24", "--batcher",
+                    "fixed", "--batch-sizes", "8", *argv])
     assert out["scores_finite"] and out["batches"] == 3
     assert "qps" in capsys.readouterr().out
 
@@ -158,13 +168,13 @@ def test_serve_cli_dedup_scores_equal_off(dedup):
     """--dedup on/auto serve the stream with scores bitwise equal to off
     (through the maintenance cadence: observe every 2 batches, a re-plan
     after the fourth), and record their resolution."""
-    argv = ["--device", "cpu", "--requests", "40", "--batch", "8",
-            "--front-end", "fused", "--storage", "int8", "--observe-every",
-            "2", "--replan-every", "4"]
+    argv = ["--device", "cpu", "--requests", "40", "--batcher", "fixed",
+            "--batch-sizes", "8", "--front-end", "fused", "--storage",
+            "int8", "--observe-every", "2", "--replan-every", "4"]
     off = srv.main(argv)
     got = srv.main([*argv, "--dedup", dedup])
     np.testing.assert_array_equal(got["scores"], off["scores"])
-    assert (got["observes"], got["replans"]) == (2, 1)
+    assert (got["maintenance_calls"]["observe"], got["replans"]) == (2, 1)
     assert "dedup" not in off["front_end"] and off["dedup"] == {}
     (rec,) = got["dedup"].values()
     assert rec["requested"] == dedup and rec["capacity_ok"]
@@ -179,6 +189,13 @@ def test_serve_cli_dedup_scores_equal_off(dedup):
                                   ["--update-qps", "10"], ["--scrub"],
                                   ["--mesh-faults"]])
 def test_serve_cli_not_ported_flags_raise(flag):
+    """The regimes of later queue items raise; the dynamic batcher is
+    ported and serves the stream on the CPU."""
+    if flag == ["--batcher", "dynamic"]:
+        out = srv.main(["--device", "cpu", "--requests", "48", *flag])
+        assert out["served"] == 48 and out["dropped"] == 0
+        assert out["steady_traces"] == 0 and out["scores_finite"]
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         srv.main(["--device", "cpu", *flag])
 
@@ -187,9 +204,9 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config("rmc1"))
     for call in (lambda: dlrm.DLRM(cfg), lambda: dlrm.build_engine(cfg),
-                 lambda: srv.bind_model(cfg),
+                 lambda: loadgen.bind_model(cfg),
                  lambda: srv.main(["--requests", "4"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert dlrm.DLRM(cfg, "cpu").top.layer0_w.device.type == "cpu"
-    assert dataclasses.is_dataclass(srv.bind_model(cfg, "cpu"))
+    assert isinstance(loadgen.bind_model(cfg, "cpu"), ServeBinding)

@@ -27,14 +27,16 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
-        "assert len(names) >= 21, names\n"
-        "assert 'repro_torch.core.planner' in names, names\n"
+        "assert len(names) >= 30, names\n"
+        "for m in ('core.planner', 'serving.loadgen', 'serving.metrics',\n"
+        "          'serving.runtime'):\n"
+        "    assert 'repro_torch.' + m in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 21
+    assert int(r.stdout.strip()) >= 30
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():

@@ -192,7 +192,7 @@ def test_beacon_cli_builds_a_hot_tier_as_the_reference(monkeypatch):
 
     monkeypatch.setattr(srv, "bind_model", spy)
     out = srv.main(["--device", "cpu", "--mode", "beacon", "--requests",
-                    "24", "--batch", "8"])
+                    "24", "--batcher", "fixed", "--batch-sizes", "8"])
     assert out["scores_finite"] and out["batches"] == 3
     (kw, b), = bound
     assert kw["hot_fraction"] == ref_default

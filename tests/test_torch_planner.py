@@ -29,6 +29,9 @@ from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
                                      placement_gather_indices)
 from repro_torch.core.pifs import engine_for_tables
 from repro_torch.launch import serve as srv
+from repro_torch.models import dlrm
+from repro_torch.serving import loadgen
+from repro_torch.serving.request import ArrivalConfig
 
 VOCABS, DIM, PAGE_BYTES, HOT = [300, 200], 16, 512, 0.2
 
@@ -36,6 +39,15 @@ VOCABS, DIM, PAGE_BYTES, HOT = [300, 200], 16, 512, 0.2
 @pytest.fixture(scope="module")
 def mesh11():
     return make_mesh((1, 1), ("data", "model"))
+
+
+def _stream(cfg, n, seed):
+    return loadgen.request_stream(cfg, loadgen.LoadConfig(
+        n, ArrivalConfig(200.0, seed=seed), seed=seed))
+
+
+def _fused(b):
+    return dlrm.make_serve_step(b.model, b.engine, front_end="fused")
 
 
 def _ids(rng, offs, B=6, L=5):
@@ -234,8 +246,8 @@ def test_bound_hot_tier_holds_the_most_observed_pages():
     """bind_model places the hot tier with observe over the profile and
     plan_and_migrate: the hot pages are the most observed ones."""
     cfg = reduced(get_config("rmc1"))
-    reqs = srv.request_stream(cfg, 8, seed=0)
-    b = srv.bind_model(cfg, "cpu", hot_fraction=0.25, profile=reqs[:2])
+    reqs = _stream(cfg, 8, seed=0)
+    b = loadgen.bind_model(cfg, "cpu", hot_fraction=0.25, profile=reqs[:2])
     c = b.engine.cfg
     hot = np.nonzero(b.state.page_to_shard.numpy() == HOT_SHARD)[0]
     assert hot.size == c.hot_pages
@@ -252,9 +264,9 @@ def test_binding_maintenance_seam():
     """serve() runs observe and replan on the reference cadence, off the
     service time; the dedup probe records per-bucket factors."""
     cfg = reduced(get_config("rmc1"))
-    reqs = srv.request_stream(cfg, 48, seed=1)
-    b = srv.bind_model(cfg, "cpu", profile=reqs[:8])
-    out = srv.serve(b, b.step("fused"), reqs, 8, observe_every=2,
+    reqs = _stream(cfg, 48, seed=1)
+    b = loadgen.bind_model(cfg, "cpu", profile=reqs[:8])
+    out = srv.serve(b, _fused(b), reqs, 8, observe_every=2,
                     replan_every=3)
     assert (out["batches"], out["observes"], out["replans"]) == (6, 3, 2)
     rep = b.dedup_report()
@@ -262,8 +274,8 @@ def test_binding_maintenance_seam():
     assert rep[next(iter(rep))]["batches"] == 3
     assert rep[next(iter(rep))]["factor"] >= 1.0
     # the same run with no maintenance scores the same requests the same
-    b2 = srv.bind_model(cfg, "cpu", profile=reqs[:8])
-    quiet = srv.serve(b2, b2.step("fused"), reqs, 8, observe_every=0,
+    b2 = loadgen.bind_model(cfg, "cpu", profile=reqs[:8])
+    quiet = srv.serve(b2, _fused(b2), reqs, 8, observe_every=0,
                       replan_every=0)
     np.testing.assert_allclose(out["scores"], quiet["scores"], rtol=0,
                                atol=1e-6)

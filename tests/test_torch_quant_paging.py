@@ -21,8 +21,8 @@ from repro.serving.request import Request as JRequest
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import paging, quant
 from repro_torch.data import traces
-from repro_torch.launch.serve import request_stream
-from repro_torch.serving import batcher
+from repro_torch.serving import batcher, loadgen
+from repro_torch.serving.request import ArrivalConfig as PArrivalConfig
 from repro_torch.serving.request import Request
 
 
@@ -144,10 +144,10 @@ def test_batcher_padding_and_decisions_match_reference():
         batcher.stack_feature(reqs, bucket, "dense"),
         jbatcher.stack_feature(jreqs, jbucket, "dense"))
     fb, jfb = batcher.FixedBatcher(2, 4), jbatcher.FixedBatcher(2, 4)
-    svc = jbatcher.FixedServiceModel()
+    svc, jsvc = batcher.FixedServiceModel(), jbatcher.FixedServiceModel()
     for n, nxt in ((0, 1.0), (1, 1.0), (1, None), (3, 2.0)):
-        a = fb.decide(0.0, reqs[:n], nxt)
-        b = jfb.decide(0.0, jreqs[:n], nxt, svc)
+        a = fb.decide(0.0, reqs[:n], nxt, svc)
+        b = jfb.decide(0.0, jreqs[:n], nxt, jsvc)
         assert type(a).__name__ == type(b).__name__
         if b is not None:
             assert dataclasses.astuple(a) == dataclasses.astuple(b)
@@ -161,8 +161,10 @@ def test_request_stream_matches_reference_loadgen(storage):
     load = LoadConfig(n_requests=12, arrival=ArrivalConfig(rate_qps=100.0),
                       seed=3, storage=storage, drift_every=5)
     want = jrequest_stream(cfg, load)
-    got = request_stream(reduced(get_config("rmc1")), 12, seed=3,
-                         storage=storage, drift_every=5)
+    got = loadgen.request_stream(reduced(get_config("rmc1")),
+                                 loadgen.LoadConfig(
+                                     12, PArrivalConfig(rate_qps=100.0),
+                                     seed=3, storage=storage, drift_every=5))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.features["indices"],
                                       w.features["indices"])

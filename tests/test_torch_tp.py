@@ -40,6 +40,8 @@ from repro_torch.core.paging import HOT_SHARD, PageTable
 from repro_torch.core.pifs import engine_for_tables
 from repro_torch.launch import serve as srv
 from repro_torch.models import dlrm
+from repro_torch.serving import loadgen
+from repro_torch.serving.request import ArrivalConfig
 
 VOCABS, DIM, PAGE_BYTES, HOT = [300, 200], 16, 512, 0.2
 B, L, TP = 8, 5, 4
@@ -411,15 +413,18 @@ def test_serve_loop_at_four_shards_and_in_pond():
     fused == pifs fused bitwise at one shard; scores in (0, 1) and
     within 1e-5 of one shard's."""
     cfg = reduced(get_config("rmc1"))
-    reqs = srv.request_stream(cfg, 48, seed=7)
-    b4 = srv.bind_model(cfg, "cpu", seed=7, profile=reqs[:12],
-                        n_shards=TP)
-    b1 = srv.bind_model(cfg, "cpu", seed=7, profile=reqs[:12])
+    reqs = loadgen.request_stream(cfg, loadgen.LoadConfig(
+        48, ArrivalConfig(200.0, seed=7), seed=7))
+    b4 = loadgen.bind_model(cfg, "cpu", seed=7, profile=reqs[:12],
+                            n_shards=TP)
+    b1 = loadgen.bind_model(cfg, "cpu", seed=7, profile=reqs[:12])
     s4, s1 = b4.state, b1.state
 
     def run(b, st, fe, mode="pifs", dedup="off"):
         b.state = st
-        return srv.serve(b, b.step(fe, mode=mode, dedup=dedup), reqs, 8,
+        step = dlrm.make_serve_step(b.model, b.engine, front_end=fe,
+                                    mode=mode, dedup=dedup)
+        return srv.serve(b, step, reqs, 8,
                          observe_every=2, replan_every=4)
 
     out = {(fe, d): run(b4, s4, fe, dedup=d)
@@ -443,7 +448,8 @@ def test_serve_cli_pond_on_cpu(monkeypatch, capsys):
     """--mode pond serves on the CPU when asked for it and raises without
     CUDA otherwise."""
     out = srv.main(["--device", "cpu", "--mode", "pond", "--requests", "24",
-                    "--batch", "8", "--front-end", "fused"])
+                    "--batcher", "fixed", "--batch-sizes", "8",
+                    "--front-end", "fused"])
     assert out["scores_finite"] and out["batches"] == 3
     (rec,) = out["front_end"].values()
     assert rec["resolved"] == "fused_tp" and rec["tp"] == 1
