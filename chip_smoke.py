@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all in parallel; the gather-once kernels,
    the partial pools and the resume share the sources of the kernels they
    vary);
@@ -32,7 +32,11 @@
    dot_interaction alone, both triangles, F in {2, 9, 27}, at B = 1 and
    batches no block size divides, against its plain version (bitwise on
    integer feats), and bitwise equal across its paths: float4 and the
-   scalar path a view offset by one float takes;
+   scalar path a view offset by one float takes; and apply_deltas against
+   its plain version, bitwise, fp32 and int8, D in {16, 18, 64, 128}, 1
+   and 4 shards, a random hot set and none, pads, zero-scale pages, int8
+   deltas at which a multiply then an add gives another code than the
+   fma, and an all-pad batch (a bitwise no-op);
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -97,7 +101,25 @@
    re-plans if it covers 64 batches), with scores finite in (0, 1).
    Under one pinned service model, the kernel path and the plain path
    give the same flush trace and scores within 1e-5, and fused == split
-   and dedup on == off bitwise per request.
+   and dedup on == off bitwise per request;
+9. updates phase: the same path at RMC4's published widths (fp32 and
+   int8) with a live update stream -- 2000 delta rows/s in batches of 64,
+   applied in chunks of 256 between micro-batches through the
+   ``apply_deltas`` kernel, int8 also requant-demote scans every 8 batches
+   -- with a write-ahead log and a checkpointer in a temp dir (removed
+   after), one ``updates`` JSON line per measured run (latency, staleness,
+   the drains' cost, the updater's report, the snapshot's time and
+   bytes).  Checks: every request served, every generated batch applied
+   after the final drain, the WAL holding exactly the batches since the
+   last snapshot, no signature new after warmup, ``apply_deltas``
+   launched (counts zeroed just before the measured runs, read just
+   after); under the pinned service model the kernel path and the plain
+   path give the same flush trace and bitwise-equal final states; the
+   kernel timed at one full chunk of the stream's rows (CUDA events, L2
+   flushed) beside its plain version, its bound and, fp32, ``index_add_``
+   per tier; and a durability round trip at RMC4 int8 and RMC1 fp32
+   (snapshot, 3 batches, both tiers overwritten, ``restore``): state and
+   scores bitwise, with the snapshot, restore and replay times.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -330,9 +352,9 @@ def assert_close(got, want, tol, what):
 def assert_equal(got, want, what):
     check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
                                    f"{tuple(want.shape)}")
-    check(bool(torch.equal(got, want)),
-          f"{what}: not bitwise equal (max err "
-          f"{(got - want).abs().max().item():.3e})")
+    if not torch.equal(got, want):
+        fail(f"{what}: not bitwise equal (max err "
+             f"{(got.float() - want.float()).abs().max().item():.3e})")
 
 
 def fused_tol(cold, hot, x, rows3, own3, hot3, w3, s3, general: bool):
@@ -461,11 +483,12 @@ def kernel_phase(gen: torch.Generator) -> None:
     n_dot = interaction_edge_checks(gen)
     n_dedup = dedup_kernel_checks(gen)
     n_tp = partial_pool_kernel_checks(gen)
+    n_upd = apply_deltas_checks(gen)
     torch.cuda.synchronize()
     print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_edge} "
           f"per-entry edge cases + {n_dot} interaction cases + {n_dedup} "
-          f"gather-once cases + {n_tp} partial-pool/resume cases passed; "
-          f"launches "
+          f"gather-once cases + {n_tp} partial-pool/resume cases + {n_upd} "
+          f"apply_deltas cases passed; launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
           flush=True)
 
@@ -1840,6 +1863,424 @@ def runtime_phase() -> tuple:
     return lines, launches
 
 
+# ------------------------------------------------ streaming updates phase
+UP_QPS, UP_BATCH, UP_CAP = 2000.0, 64, 256   # rows/s, rows per batch, chunk
+# the pinned int8 runs' demote scans: two per run, a page qualifying after
+# one row update (each moves ~0.1 of drift at D = 128), so that pages are
+# demoted and each demote is fenced by a snapshot
+UP_DEMOTE = {"demote_every": 64, "drift_threshold": 0.01}
+UP_FIELDS = ("cold", "hot", "page_scales", "page_to_shard", "page_to_slot",
+             "counts")
+
+
+def fma_deltas(q, s, gen, tries=64):
+    """Deltas (n, D) at which round((q * s + d) / s) with a multiply then an
+    add gives another int8 code than with one fma, searched near each
+    code's halfway points (elements with ``q * s`` exact in float32, such as
+    q = 0, cannot differ and keep a small gaussian delta)."""
+    from repro_torch.kernels.ref import fma_f32
+    dev = q.device
+    qf = q.float()
+    s2 = s[:, None].expand_as(qf).contiguous()
+    out = torch.randn(qf.shape, generator=gen, device=dev) * 0.01
+    todo = torch.ones_like(qf, dtype=torch.bool)
+    for _ in range(tries):
+        k = (q.long() + torch.randint(-3, 4, q.shape, generator=gen,
+                                      device=dev)).clamp(-120, 120)
+        d = ((k.double() + 0.5 - qf.double()) * s2.double()).float()
+        d = d * (1 + (torch.rand(q.shape, generator=gen, device=dev) - 0.5)
+                 * 6e-7)
+        mul = torch.round((qf * s2 + d) / s2).clamp(-127, 127)
+        fma = torch.round(fma_f32(qf, s2, d) / s2).clamp(-127, 127)
+        hit = todo & (mul != fma)
+        out = torch.where(hit, d, out)
+        todo &= ~hit
+    return out
+
+
+def delta_positions(eng, state, rows):
+    """(is_hot, storage row in its tier) of host row ids (>= 0)."""
+    from repro_torch.core.paging import HOT_SHARD, host
+    c = eng.cfg
+    ps = c.page_size
+    page = rows // ps
+    shard = host(state.page_to_shard)[page].astype(np.int64)
+    local = host(state.page_to_slot)[page].astype(np.int64) * ps + rows % ps
+    is_hot = shard == HOT_SHARD
+    return is_hot, np.where(is_hot, local, shard * c.rows_per_shard + local)
+
+
+def apply_deltas_checks(gen: torch.Generator) -> int:
+    """The apply_deltas kernel against its plain version on the card,
+    bitwise: fp32 and int8, D in {16, 18, 64, 128} (18: the scalar path),
+    1 and 4 shards, a random hot set and an empty one, hot and cold rows,
+    pads, zero-scale pages, int8 deltas at which a multiply then an add
+    would give another code (the count the fma decides must be > 0), and
+    an all-pad batch that leaves both tiers bitwise unchanged."""
+    from repro_torch.core.pifs import engine_for_tables
+    from repro_torch.core.updates import coalesce_deltas
+    from repro_torch.kernels import ops
+
+    n, decided = 0, 0
+    for D in (16, 18, 64, 128):
+        for storage in ("fp32", "int8"):
+            for S in (1, 4):
+                for hot in (True, False):
+                    eng, _ = engine_for_tables(
+                        [3000, 2000], D, device="cuda", hot_fraction=0.05,
+                        storage=storage, n_shards=S)
+                    c = eng.cfg
+                    st = eng.init_state(gen)
+                    if hot:
+                        hp = torch.randperm(c.num_pages, generator=gen,
+                                            device="cuda")[:c.hot_pages]
+                        st.page_to_shard[hp] = -1
+                        st.page_to_slot[hp] = torch.arange(
+                            hp.numel(), device="cuda", dtype=torch.int32)
+                    st.hot.normal_(generator=gen)
+                    st.hot[0, :2] = -0.0
+                    cold_pages = torch.nonzero(st.page_to_shard >= 0)[:, 0]
+                    st.page_scales[cold_pages[:3]] = 0.0
+                    g = np.random.default_rng(D * 10 + S)
+                    rows, d = coalesce_deltas(
+                        g.integers(-3, c.padded_rows, 400),
+                        g.normal(size=(400, D)).astype(np.float32) * 0.01)
+                    rows, d = rows[:UP_CAP], d[:UP_CAP]
+                    pad = UP_CAP - rows.size
+                    rows = np.concatenate([rows, np.full(pad, -1, np.int32)])
+                    d = np.concatenate([d, np.zeros((pad, D), np.float32)])
+                    dt = torch.as_tensor(d, device="cuda")
+                    is_hot, pos = delta_positions(eng, st,
+                                                  np.maximum(rows, 0))
+                    sc = st.page_scales[torch.as_tensor(
+                        np.maximum(rows, 0) // c.page_size, device="cuda")]
+                    sel = np.nonzero((rows >= 0) & ~is_hot)[0]
+                    selt = torch.as_tensor(sel, device="cuda")
+                    post = torch.as_tensor(pos[sel], device="cuda")
+                    if storage == "int8":
+                        live = sc[selt] > 0
+                        q = st.cold[post[live]]
+                        dt[selt[live]] = fma_deltas(q, sc[selt][live], gen)
+                        before = st.cold[post].float()
+                    rt = torch.as_tensor(rows, device="cuda")
+                    tiers = [(st.cold.clone(), st.hot.clone())
+                             for _ in range(2)]
+                    common = (st.page_scales, st.page_to_shard,
+                              st.page_to_slot, rt, dt, c.page_size,
+                              c.rows_per_shard)
+                    ops.apply_deltas(*tiers[0], *common)
+                    ops.apply_deltas(*tiers[1], *common, impl="torch")
+                    tag = f"apply_deltas D={D} {storage} S={S} hot={hot}"
+                    assert_equal(tiers[0][0], tiers[1][0], f"{tag} cold")
+                    assert_equal(tiers[0][1], tiers[1][1], f"{tag} hot")
+                    if storage == "int8":
+                        s2 = sc[selt][:, None]
+                        mul = torch.round((before * s2 + dt[selt]) / s2
+                                          ).clamp(-127, 127)
+                        after = tiers[0][0][post].float()
+                        live2 = (s2 > 0).expand_as(mul)
+                        decided += int(((mul != after) & live2).sum())
+                    # an all-pad batch writes nothing
+                    keep = [x.clone() for x in tiers[0]]
+                    ops.apply_deltas(*tiers[0], *common[:3],
+                                     torch.full_like(rt, -1), dt,
+                                     *common[5:])
+                    assert_equal(tiers[0][0], keep[0], f"{tag} all-pad cold")
+                    assert_equal(tiers[0][1], keep[1], f"{tag} all-pad hot")
+                    n += 1
+    check(decided > 0, "apply_deltas: no element where the fma decides")
+    torch.cuda.synchronize()
+    print(f"apply_deltas kernel checks: {n} cases bitwise equal to the "
+          f"plain version; {decided} int8 codes where a multiply then an "
+          f"add would differ", flush=True)
+    return n
+
+
+def apply_deltas_timing(b, batches, timer: Timer, arch: str,
+                        storage: str) -> dict:
+    """The kernel at one full chunk (``UP_CAP`` unique rows of the update
+    stream) on the serving state, its plain version, and (fp32) the
+    library's ``index_add_`` per tier on precomputed addresses; first the
+    kernel against the plain version on the same rows, bitwise."""
+    from repro_torch.core.updates import coalesce_deltas
+    from repro_torch.kernels import ops
+    eng, st = b.engine, b.state
+    c = eng.cfg
+    rows, d = coalesce_deltas(np.concatenate([x.rows for x in batches]),
+                              np.concatenate([x.deltas for x in batches]))
+    rows, d = rows[:UP_CAP], d[:UP_CAP]
+    U = rows.size
+    is_hot, pos = delta_positions(eng, st, rows.astype(np.int64))
+    rt = torch.as_tensor(rows, device="cuda")
+    dt = torch.as_tensor(d, device="cuda")
+    hp = torch.as_tensor(pos[is_hot], device="cuda")
+    cp = torch.as_tensor(pos[~is_hot], device="cuda")
+    hmask = torch.as_tensor(is_hot, device="cuda")
+    common = (st.page_scales, st.page_to_shard, st.page_to_slot, rt, dt,
+              c.page_size, c.rows_per_shard)
+
+    def kernel():
+        ops.apply_deltas(st.cold, st.hot, *common)
+
+    def plain():
+        ops.apply_deltas(st.cold, st.hot, *common, impl="torch")
+
+    saved = (st.cold[cp].clone(), st.hot[hp].clone())
+    kernel()
+    got = (st.cold[cp].clone(), st.hot[hp].clone())
+    st.cold[cp], st.hot[hp] = saved
+    plain()
+    assert_equal(got[0], st.cold[cp], f"apply_deltas {arch} {storage} cold")
+    assert_equal(got[1], st.hot[hp], f"apply_deltas {arch} {storage} hot")
+    lib = None
+    if storage == "fp32":
+        dh, dc = dt[hmask], dt[~hmask]
+
+        def lib():
+            st.cold.index_add_(0, cp, dc)
+            st.hot.index_add_(0, hp, dh)
+    n_hot, n_cold = int(is_hot.sum()), int((~is_hot).sum())
+    D = c.dim
+    cs = st.cold.element_size()
+    nbytes = (n_hot * D * 8 + n_cold * D * cs * 2 + U * D * 4 + U * 4
+              + U * 8 + (n_cold * 4 if storage == "int8" else 0))
+    flops = n_hot * D + n_cold * D * (4 if storage == "int8" else 1)
+    row = {"name": "apply_deltas", "arch": arch,
+           "storage": storage, "rows": U, "hot_rows": n_hot, "dim": D,
+           "n_shards": c.n_shards, "max_abs_err": 0.0, "ms": timer(kernel),
+           "plain_ms": timer(plain),
+           "library_ms": None if lib is None else timer(lib),
+           **bound(nbytes, flops)}
+    return row
+
+
+def corrupt_state(state, gen) -> None:
+    """Overwrite both tiers with garbage (NaN hot rows; random codes or
+    values): what a restore must undo."""
+    state.hot.fill_(float("nan"))
+    if state.cold.dtype == torch.int8:
+        state.cold.copy_(torch.randint(-127, 128, state.cold.shape,
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int8))
+    else:
+        state.cold.normal_(generator=gen)
+
+
+def updates_run(cfg, storage, impl="cuda", pin=False, ckpt=True,
+                demote=None) -> dict:
+    """``serve_offered_load``'s path with a live update stream on the card:
+    ``build_serving`` + a ``StreamingUpdater`` over ``update_stream``
+    (``UP_QPS`` rows/s in batches of ``UP_BATCH``, chunks of ``UP_CAP``;
+    int8 also requant-demote scans, every 8 applied batches under the
+    reference's default drift knobs, or as ``demote`` sets them) with a
+    WAL and, with ``ckpt`` (always at int8: a demote is fenced by a
+    snapshot), a checkpointer, both in a temp dir removed after, then
+    ``run_offered_load`` and a final ``drain``.  Checks the counts; returns
+    the printed line, the flush trace, the final state and the stream."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.checkpoint.wal import WriteAheadLog
+    from repro_torch.core.updates import UpdateConfig
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.batcher import FixedServiceModel
+    from repro_torch.serving.loadgen import LoadConfig, update_stream
+    from repro_torch.serving.request import ArrivalConfig
+    from repro_torch.serving.updates import StreamingUpdater
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_updates_")
+    try:
+        load = LoadConfig(RT_N, ArrivalConfig(RT_QPS, seed=0),
+                          slo_ms=RT_SLO_MS, seed=0, storage=storage,
+                          update_qps=UP_QPS, update_batch=UP_BATCH)
+        t0 = time.perf_counter()
+        rt, b = srv.build_serving(
+            cfg, "cuda", impl=impl, batch_sizes=RT_SIZES, slo_ms=RT_SLO_MS,
+            storage=storage, service=FixedServiceModel(**RT_PIN) if pin
+            else None)
+        batches = update_stream(cfg, load)
+        knobs = demote or {"demote_every": 8}
+        updater = StreamingUpdater(
+            b, batches, UpdateConfig(capacity=UP_CAP, **(
+                knobs if storage == "int8" else {})),
+            wal=WriteAheadLog(os.path.join(tmp, "u.wal")))
+        snap = None
+        if ckpt or storage == "int8":
+            t1 = time.perf_counter()
+            b.attach_checkpointer(Checkpointer(os.path.join(tmp, "ck"),
+                                               keep=1))
+            snap = {"snapshot_s": time.perf_counter() - t1,
+                    "snapshot_bytes": int(sum(
+                        getattr(b.state, f).nbytes for f in UP_FIELDS)),
+                    "free_disk_bytes": shutil.disk_usage(tmp).free}
+        s = srv.run_offered_load(rt, b, cfg, load, updater=updater)
+        t1 = time.perf_counter()
+        tail = updater.drain()
+        drain_s = time.perf_counter() - t1
+        rep = updater.report()
+        wall = time.perf_counter() - t0
+        tag = (f"updates {cfg.name} {storage} impl={impl} pin={pin}")
+        check(s["served"] == RT_N and s["dropped"] == s["failed"] == 0,
+              f"{tag}: served {s['served']} of {RT_N}")
+        check(s["steady_traces"] == 0,
+              f"{tag}: {s['steady_traces']} signatures new after warmup")
+        check(rep["applied_batches"] == rep["generated_batches"] ==
+              len(batches) and rep["pending_batches"] == 0,
+              f"{tag}: {rep}")
+        committed = (b.checkpointer.extra()["update_seq"]
+                     if b.checkpointer is not None else 0)
+        check(rep["wal_records"] == rep["update_seq"] - committed
+              and (rep["snapshots"] > 0
+                   or rep["wal_records"] == rep["applied_batches"]),
+              f"{tag}: WAL holds {rep['wal_records']} records, "
+              f"{rep['applied_batches']} applied, seq {committed} "
+              f"committed: {rep}")
+        check(s["maintenance_calls"].get("updates", 0) > 0,
+              f"{tag}: no update drain on the maintenance seam")
+        stale = s["staleness"]
+        calls = s["maintenance_calls"]["updates"]
+        line = {"arch": cfg.name, "storage": storage, "impl": impl,
+                "pinned": pin, "requests": RT_N, "offered_qps": RT_QPS,
+                "update_qps": UP_QPS, "update_batch": UP_BATCH,
+                "capacity": UP_CAP,
+                **{k: s[k] for k in ("served", "batches", "p50_ms", "p99_ms",
+                                     "p99.9_ms", "qps", "bucket_mix",
+                                     "replans", "steady_traces",
+                                     "maintenance_calls", "maintenance_s")},
+                "staleness": {k: stale[k] for k in (
+                    "rows_behind_p50", "rows_behind_p99",
+                    "seconds_behind_p50", "seconds_behind_p99")},
+                "updates_mean_ms": s["maintenance_s"]["updates"] / calls
+                * 1e3,
+                "updates": rep, "run_batches_applied": s["updates"][
+                    "applied_batches"], "drained_tail": tail,
+                "drain_s": drain_s, **(snap or {}), "wall_s": wall}
+        trace = [(r.t, r.bucket.batch, r.bucket.pooling, r.n_real)
+                 for r in rt.metrics.batches]
+        return {"line": line, "trace": trace, "binding": b,
+                "batches": batches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def durability_run(cfg, storage, gen) -> dict:
+    """Snapshot -> 3 update batches -> both tiers corrupted -> ``restore``
+    (the checkpoint, then the WAL's suffix): state and scores bitwise as
+    before the corruption, ``update_seq`` 3, no new signature.  Times the
+    snapshot, the restore and (again, after the checks) the replay of the
+    3 batches alone."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.checkpoint.wal import WriteAheadLog
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.request import ArrivalConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durability_")
+    try:
+        reqs = stream(cfg, 64, 0, storage)
+        b = loadgen.bind_model(cfg, "cuda", storage=storage, seed=0,
+                               profile=reqs)
+        batches = loadgen.update_stream(cfg, loadgen.LoadConfig(
+            RT_N, ArrivalConfig(RT_QPS, seed=0), seed=0, storage=storage,
+            update_qps=UP_QPS, update_batch=UP_BATCH))[:3]
+        b.attach_wal(WriteAheadLog(os.path.join(tmp, "u.wal")))
+        t0 = time.perf_counter()
+        b.attach_checkpointer(Checkpointer(os.path.join(tmp, "ck"), keep=1))
+        snapshot_s = time.perf_counter() - t0
+        for x in batches:
+            b.apply_deltas(x.rows, x.deltas)
+        batch = pad_batch(cfg, reqs[:32], 32)
+        want = {f: getattr(b.state, f).clone() for f in UP_FIELDS}
+        scores = b.execute(batch).clone()
+        b.reset_plan_stats()
+        corrupt_state(b.state, gen)
+        check(not torch.equal(b.state.cold, want["cold"]),
+              f"durability {cfg.name} {storage}: corruption changed nothing")
+        t0 = time.perf_counter()
+        b.restore()
+        restore_s = time.perf_counter() - t0
+        tag = f"durability {cfg.name} {storage}"
+        for f in UP_FIELDS:
+            assert_equal(getattr(b.state, f), want[f], f"{tag}: {f}")
+        assert_equal(b.execute(batch), scores, f"{tag}: scores")
+        check(b.update_seq == 3, f"{tag}: update_seq {b.update_seq}")
+        check(b.plan_stats()["traces"] == 0, f"{tag}: a new signature")
+        t0 = time.perf_counter()
+        replayed = b.replay_wal(after_seq=0)
+        replay_s = time.perf_counter() - t0
+        check(replayed == 3, f"{tag}: replayed {replayed} of 3")
+        return {"arch": cfg.name, "storage": storage, "check": "bitwise",
+                "snapshot_bytes": int(sum(want[f].nbytes for f in UP_FIELDS)),
+                "snapshot_s": snapshot_s, "restore_s": restore_s,
+                "replay_batches": replayed, "replay_s": replay_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def updates_phase(gen: torch.Generator) -> tuple:
+    """Phase 9: streaming updates on the card at RMC4's published widths,
+    fp32 and int8 (``updates_run``), launch counts zeroed just before the
+    measured runs and read just after (``apply_deltas`` must have run);
+    under the pinned service model the kernel path and the plain path give
+    identical flush traces and bitwise-equal final states (int8 with
+    ``UP_DEMOTE``'s scans, which demote pages and fence each demote with a
+    snapshot); the kernel timed at one full chunk; durability round trips
+    at RMC4 int8 and RMC1 fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    cfg = get_config("rmc4")
+    lines, timing = [], []
+    build.reset_launches()
+    for storage in ("fp32", "int8"):
+        r = updates_run(cfg, storage)
+        lines.append(r["line"])
+        print("updates " + json.dumps(r["line"]), flush=True)
+        del r
+        torch.cuda.empty_cache()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    check(launches["apply_deltas"] > 0,
+          "updates phase: kernel apply_deltas not launched")
+    timer = Timer()
+    for storage in ("fp32", "int8"):
+        k = updates_run(cfg, storage, pin=True, ckpt=False, demote=UP_DEMOTE)
+        kb = k.pop("binding")
+        p = updates_run(cfg, storage, impl="torch", pin=True, ckpt=False,
+                        demote=UP_DEMOTE)
+        pb = p.pop("binding")
+        tag = f"updates rmc4 {storage}: kernel vs plain"
+        check(k["trace"] == p["trace"], f"{tag}: flush traces differ")
+        check(k["line"]["updates"] == p["line"]["updates"],
+              f"{tag}: reports differ")
+        check(storage == "fp32" or k["line"]["updates"]["demoted_pages"] > 0,
+              f"{tag}: no page demoted")
+        for f in UP_FIELDS:
+            assert_equal(getattr(kb.state, f), getattr(pb.state, f),
+                         f"{tag}: {f}")
+        print(f"{tag}: flush traces equal ({len(k['trace'])} batches), "
+              f"final states bitwise equal; report "
+              f"{json.dumps(k['line']['updates'])}", flush=True)
+        del pb, p
+        torch.cuda.empty_cache()
+        timing.append(apply_deltas_timing(kb, k["batches"], timer,
+                                          cfg.name, storage))
+        del kb, k
+        torch.cuda.empty_cache()
+    del timer
+    dur = [durability_run(get_config("rmc4"), "int8", gen),
+           durability_run(get_config("rmc1"), "fp32", gen)]
+    for d in dur:
+        print("updates " + json.dumps({"durability": d}), flush=True)
+    print(f"updates phase: {len(lines)} measured runs in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return lines, timing, dur, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU",
@@ -1875,6 +2316,8 @@ def main() -> None:
     del timer                   # its 256 MB flush buffer
     torch.cuda.empty_cache()
     _, rt_launches = runtime_phase()
+    _, up_timing, _, up_launches = updates_phase(gen)
+    details += up_timing
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
@@ -1895,6 +2338,19 @@ def main() -> None:
             "fused_resume": ("fused_resume", "tp")}
     kernels = []
     for k in build.KERNELS.values():
+        if k.name == "apply_deltas":    # phase 9's path, at a full chunk
+            d = next(x for x in up_timing if x["storage"] == "fp32")
+            kernels.append({
+                "name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": up_launches[k.name],
+                **{key: d[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")},
+                "runtime_launches": rt_launches[k.name],
+                "shape": f"rmc4 fp32 {d['rows']} rows x {d['dim']} "
+                         f"({d['hot_rows']} hot), library index_add_ per "
+                         "tier"})
+            continue
         row, path = pick[k.name]
         d = next(x for x in details if x["name"] == row
                  and x["arch"] == "rmc4" and x["storage"] == "fp32"

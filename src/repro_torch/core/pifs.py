@@ -24,9 +24,11 @@ reference's psum on its CPU mesh.  ``combine='psum_scatter'`` gives the
 same values as 'psum', the whole (B, G, D) batch (one device holds every
 bag slice).  There is no dp axis: the batch is one data-parallel group.
 
-State is an ``EngineState`` of tensors; every method is functional.  State
-crosses from the reference engine as the placement-free triple of
-``export_state`` plus a page table, into :meth:`pack_state`.
+State is an ``EngineState`` of tensors; every method is functional but the
+streaming updates (:meth:`apply_deltas`, :meth:`requant_hot_pages`), which
+write the tiers in place.  State crosses from the reference engine as the
+placement-free triple of ``export_state`` plus a page table, into
+:meth:`pack_state`.
 
 Lookups take the gather-once knob ``dedup`` (off / auto / on), resolved
 once per signature (:meth:`_resolve_dedup`).  Maintenance is the
@@ -44,6 +46,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core import sls as sls_ops
+from repro_torch.core import updates as upd
 from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
                                      host, initial_page_table, locate,
                                      placement_gather_indices)
@@ -621,6 +624,89 @@ class PIFSEmbeddingEngine:
                                device=self.device)
         return state.page_scales[page][:, None]
 
+    # ------------------------------------------------------ updates
+    def apply_deltas(self, state: EngineState, rows, deltas,
+                     impl: str = "cuda") -> EngineState:
+        """Apply a batch of per-row additive deltas to the live tables.
+
+        ``rows``: (U,) global row ids (host array or tensor),
+        ``core.updates.PAD_ROW`` (= -1) for pad entries; rows must be
+        *unique* (callers coalesce duplicates, so WAL replay is
+        bit-identical).  ``deltas``: (U, D) float32.
+
+        Tier semantics, the reference's: a hot row and an fp32 cold row
+        add the delta; an int8 cold row is updated in its page's quantized
+        domain under the carried scale, ``round(fma(q, scale, delta) /
+        scale)`` clamped to +-127 (the reference's XLA contracts the
+        dequantize-add into one fma), and keeps its codes where the scale
+        is not positive.  A pad writes nothing, so a ``-0.0`` stays.  The
+        values equal the reference's bit for bit.
+
+        Unlike the reference, which returns a new state, this mutates
+        ``state.cold`` and ``state.hot`` in place (one launch of the
+        ``apply_deltas`` kernel on the card; ``impl`` as for lookups) and
+        returns ``state``: RMC4's fp32 cold tier is 5.6 GB, and a
+        functional update would move it through device memory on every
+        chunk.  A row id at or past ``padded_rows`` raises, naming it.
+        One signature per (storage, U), counted as lookups' are, so
+        steady-state updates add no trace."""
+        r = host(rows)
+        if (r.ndim != 1 or len(np.shape(deltas)) != 2
+                or np.shape(deltas)[0] != r.shape[0]):
+            raise ValueError(
+                f"rows must be (U,), deltas (U, D); got {r.shape} / "
+                f"{tuple(np.shape(deltas))}")
+        if np.shape(deltas)[1] != self.cfg.dim:
+            raise ValueError(f"delta dim {np.shape(deltas)[1]} != table dim "
+                             f"{self.cfg.dim}")
+        if (r >= self.cfg.padded_rows).any():
+            bad = int(r[r >= self.cfg.padded_rows][0])
+            raise ValueError(
+                f"apply_deltas: row id {bad} outside the padded address "
+                f"space [0, {self.cfg.padded_rows})")
+        rows = self._as(rows, torch.int32)
+        deltas = self._as(deltas, torch.float32)
+        self._note_signature(("update", self.cfg.storage, int(r.shape[0]),
+                              "int32", "float32"))
+        kernel_ops.apply_deltas(state.cold, state.hot, state.page_scales,
+                                state.page_to_shard, state.page_to_slot,
+                                rows, deltas, self.cfg.page_size,
+                                self.cfg.rows_per_shard, impl=impl)
+        return state
+
+    def requant_hot_pages(self, state: EngineState, pages) -> EngineState:
+        """Snap listed hot-resident pages back onto their carried-scale
+        quantized grid, in place (no migration).
+
+        ``pages``: (K,) global page ids, -1 for pads.  Each listed page's
+        hot rows become ``dequantize(quantize(x, s), s)`` under its carried
+        scale: the value a demote-then-promote round trip through the int8
+        cold tier gives.  A no-op for fp32 storage; pages not hot-resident
+        are skipped.  Elementwise with no multiply-add (a divide, a round,
+        a multiply), so plain PyTorch equals the reference here and needs
+        no kernel.  Mutates ``state.hot`` and returns ``state``; one
+        signature per K."""
+        if not self.quantized:
+            return state
+        pages = host(pages)
+        if pages.ndim != 1:
+            raise ValueError(f"pages must be (K,); got {pages.shape}")
+        self._note_signature(("requant", int(pages.shape[0]), "int32"))
+        ps = self.cfg.page_size
+        shard = host(state.page_to_shard)
+        pg = np.where(pages >= 0, pages, 0)
+        sel = np.unique(pg[(pages >= 0) & (shard[pg] == HOT_SHARD)])
+        if sel.size == 0:
+            return state
+        slot = host(state.page_to_slot)[sel].astype(np.int64)
+        rows = torch.as_tensor((slot[:, None] * ps + np.arange(ps)).ravel(),
+                               device=self.device)
+        s = state.page_scales[torch.as_tensor(np.repeat(sel, ps),
+                                              device=self.device)][:, None]
+        state.hot[rows] = quant.dequantize_rows(
+            quant.quantize_rows(state.hot[rows], s), s)
+        return state
+
     # ----------------------------------------------------------- the blocks
     def _address(self, state: EngineState, idx: torch.Tensor):
         """Each entry's storage row (local to its tier's slice), the
@@ -771,20 +857,29 @@ class ServeBinding:
         the step (the lookup would serve a clamped row);
       * ``scrub_scores`` -- NaN/Inf scores become 0, counted per batch
         (``last_poisoned``) and in total (``poisoned_rows`` /
-        ``poisoned_batches``).
+        ``poisoned_batches``);
+      * ``attach_wal`` / :meth:`apply_deltas` -- streaming updates: each
+        delta batch is coalesced, logged to the write-ahead log, then
+        applied in fixed-``update_capacity`` chunks (one signature);
+      * ``attach_checkpointer`` / :meth:`snapshot` / :meth:`restore` --
+        commit the state (the WAL truncates) and reload it between
+        micro-batches, replaying the WAL's suffix, so a restore loses no
+        update.
 
-    The reference's recovery seams (checkpoint restore, elastic re-mesh,
-    streaming updates, integrity ledger) come with ``ROADMAP.md`` queue 1
-    items 11-13."""
+    ``impl`` is the route of the update kernel, as the steps' is of the
+    lookups.  The reference's elastic re-mesh (``ROADMAP.md`` queue 1 item
+    13) and integrity ledger (item 12) are not ported yet."""
 
     idx_key = "indices"                    # batch entry feeding the profiler
 
     def __init__(self, engine: PIFSEmbeddingEngine, state: EngineState,
                  model, step, steps: Optional[dict] = None,
-                 validate_ids: bool = False, scrub_scores: bool = False):
+                 validate_ids: bool = False, scrub_scores: bool = False,
+                 impl: str = "cuda"):
         self.engine = engine
         self.state = state
         self.model = model
+        self.impl = impl
         self.replans = 0
         # per-bucket duplicate-access accounting, fed by observe() on the
         # maintenance path (never the timed service path): bucket index
@@ -799,6 +894,16 @@ class ServeBinding:
         self.poisoned_rows = 0
         self.poisoned_batches = 0
         self.last_poisoned = 0
+        # mid-serving recovery
+        self.checkpointer = None
+        self.ckpt_step = 0
+        self.restores = 0
+        # streaming updates: write-ahead log, fixed apply capacity (one
+        # signature) and the sequence number of the last applied batch
+        self.wal = None
+        self.update_capacity = 256
+        self.update_seq = 0
+        self.updates_applied = 0     # total unique rows applied
 
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
@@ -867,11 +972,146 @@ class ServeBinding:
 
     def replan(self) -> dict:
         """Plan from the histogram and migrate; returns the planner's
-        stats.  Waits for the card, as :meth:`observe` does."""
+        stats.  Waits for the card, as :meth:`observe` does.  (The
+        reference's integrity branch, a WAL fence after a tier flip, comes
+        with ``ROADMAP.md`` queue 1 item 12.)"""
         self.state, stats = self.engine.plan_and_migrate(self.state)
         self._sync()
         self.replans += 1
         return stats
+
+    # ------------------------------------------------------------- updates
+    def attach_wal(self, wal) -> None:
+        """Wire a ``repro_torch.checkpoint.wal.WriteAheadLog``: every batch
+        applied through :meth:`apply_deltas` is appended before it touches
+        the card, :meth:`snapshot` truncates, :meth:`restore` replays the
+        suffix past the snapshot's sequence point."""
+        self.wal = wal
+
+    def apply_deltas(self, rows, deltas, log: bool = True) -> int:
+        """Apply one streaming delta batch to the live state (maintenance
+        path, between micro-batches): coalesce duplicate rows, log the
+        batch to the WAL if one is attached, apply it in
+        ``update_capacity`` chunks, and wait for the card, so the wall time
+        is charged where the runtime measures it.  Returns the number of
+        unique rows applied."""
+        rows, deltas = upd.coalesce_deltas(rows, deltas)
+        if rows.size == 0:
+            return 0
+        if log:
+            self.update_seq += 1
+            if self.wal is not None:
+                self.wal.append(self.update_seq, rows, deltas)
+        for r_chunk, d_chunk in upd.chunk_delta_batch(
+                rows, deltas, self.update_capacity):
+            self.state = self.engine.apply_deltas(self.state, r_chunk,
+                                                  d_chunk, impl=self.impl)
+        self._sync()
+        self.updates_applied += int(rows.size)
+        # (the reference refreshes its integrity ledger here: item 12)
+        return int(rows.size)
+
+    def replay_wal(self, after_seq: int = 0) -> int:
+        """Re-apply the WAL's records with seq > ``after_seq`` through the
+        live path (not logged again), so the replayed state equals the
+        live one bit for bit.  Returns the number of batches replayed."""
+        if self.wal is None:
+            raise RuntimeError("no WAL attached")
+        n = 0
+        for seq, rows, deltas in self.wal.replay():
+            if seq <= after_seq:
+                continue
+            self.apply_deltas(rows, deltas, log=False)
+            self.update_seq = max(self.update_seq, int(seq))
+            n += 1
+        return n
+
+    def requant_hot_pages(self, pages) -> int:
+        """Snap listed hot pages onto their carried-scale grid (the engine
+        op, then a wait for the card).  Returns the number of non-pad pages
+        listed.  (The reference's ledger update and WAL fence here come
+        with its integrity ledger, ``ROADMAP.md`` queue 1 item 12.)"""
+        pages = np.asarray(pages, np.int32).ravel()
+        self.state = self.engine.requant_hot_pages(self.state, pages)
+        self._sync()
+        return int((pages >= 0).sum())
+
+    # ------------------------------------------------------------ recovery
+    def attach_checkpointer(self, checkpointer, save_now: bool = True
+                            ) -> None:
+        """Wire a ``repro_torch.checkpoint.checkpointer.Checkpointer``;
+        ``save_now`` commits the current state, so :meth:`restore` always
+        has a baseline."""
+        self.checkpointer = checkpointer
+        if save_now:
+            self.snapshot()
+
+    def _mesh(self) -> dict:
+        """The one-card equivalent of the reference's mesh shape."""
+        return {"data": 1, "model": int(self.engine.cfg.n_shards)}
+
+    def snapshot(self) -> None:
+        """Commit the current state (blocking: callers sit on the
+        maintenance path).  The manifest's ``extra`` records the last
+        applied update sequence number, the mesh (:meth:`_mesh`), the shard
+        count and the cold-tier storage; then the WAL truncates: every
+        logged delta is inside the committed state.  (The reference also
+        records its page-checksum ledger here: item 12.)"""
+        if self.checkpointer is None:
+            raise RuntimeError("no checkpointer attached")
+        self.ckpt_step += 1
+        extra = {"update_seq": self.update_seq, "mesh": self._mesh(),
+                 "n_shards": int(self.engine.cfg.n_shards),
+                 "storage": self.engine.cfg.storage}
+        self.checkpointer.save(self.ckpt_step, self.state, blocking=True,
+                               extra=extra)
+        if self.wal is not None:
+            self.wal.truncate()
+
+    def _check_restore_extra(self, extra: dict) -> None:
+        """The manifest's shard-count and storage guard: the cold tier's
+        layout is a function of ``n_shards``, and int8 codes are not fp32
+        rows, so a mismatched restore fails loudly.  A manifest without
+        these keys passes."""
+        snap_shards = extra.get("n_shards")
+        if (snap_shards is not None
+                and int(snap_shards) != int(self.engine.cfg.n_shards)):
+            raise ValueError(
+                f"checkpoint was written with n_shards={snap_shards} "
+                f"(mesh {extra.get('mesh')}), but this engine has "
+                f"n_shards={self.engine.cfg.n_shards} (mesh "
+                f"{self._mesh()}): an in-place restore would silently "
+                "mis-place shards. Restore on an engine matching the "
+                "snapshot's shard count instead (the elastic re-mesh is "
+                "ROADMAP.md queue 1 item 13).")
+        snap_storage = extra.get("storage")
+        if (snap_storage is not None
+                and snap_storage != self.engine.cfg.storage):
+            raise ValueError(
+                f"checkpoint was written with storage={snap_storage!r} but "
+                f"this engine uses storage={self.engine.cfg.storage!r}: "
+                "int8 codes and fp32 rows are not interchangeable -- "
+                "rebuild the engine with the snapshot's storage mode.")
+
+    def restore(self) -> None:
+        """Reload the state from the latest committed checkpoint, between
+        micro-batches: every leaf is CRC-checked and copied into the live
+        tensors (same shapes and dtypes, no second allocation), then, with
+        a WAL attached, every batch logged after the snapshot's sequence
+        point is replayed through the live apply path, so the state equals
+        the uninterrupted one bit for bit.  No new signature.  (The
+        reference adopts its integrity ledger here: item 12.)"""
+        if self.checkpointer is None:
+            raise RuntimeError("no checkpointer attached")
+        extra = self.checkpointer.extra()
+        self._check_restore_extra(extra)
+        self.state = self.checkpointer.restore(self.state, into=True)
+        self._sync()
+        self.restores += 1
+        if self.wal is not None:
+            snap_seq = int(extra.get("update_seq", 0))
+            self.update_seq = snap_seq
+            self.replay_wal(after_seq=snap_seq)
 
     def plan_stats(self) -> dict:
         return self.engine.plan_stats()

@@ -10,7 +10,9 @@ A kernel that varies another shares its source with it: the gather-once
 (dedup) ``masked_sls_dedup`` lives in ``masked_sls.cu``;
 ``fused_front_end_dedup`` and the partial pools ``fused_partial_pool`` and
 ``fused_partial_pool_dedup`` in ``fused_front_end.cu``; ``fused_resume`` in
-``dot_interaction.cu``.
+``dot_interaction.cu``.  ``apply_deltas`` (``apply_deltas.cu``) replaces
+no Pallas kernel: it is the device half of the reference's streaming
+updates, computed there in jnp.
 The build runs at first use; every missing library is compiled by its own
 ``nvcc`` process, all started together.  The hash covers every source and
 the flags, so an edited source is rebuilt.  Libraries are loaded with
@@ -41,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 @dataclasses.dataclass
 class KernelInfo:
     name: str          # C entry point
-    replaces: str      # the Pallas TPU kernel (file:line of its pallas_call)
+    replaces: str      # the Pallas TPU kernel (file:line of its pallas_call),
+    #                    or the reference's jnp code a kernel stands in for
     stem: str = ""     # source stem (csrc/<stem>.cu); defaults to ``name``
     launches: int = 0  # launches by the wrapper since the last reset
 
@@ -77,6 +80,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo("fused_resume",
                "src/repro/kernels/sls.py:871 (fused_resume_pallas)",
                stem="dot_interaction"),
+    KernelInfo("apply_deltas",
+               "src/repro/core/pifs.py:1232 (_build_update_plan.block: jnp, "
+               "no Pallas kernel)"),
 )}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

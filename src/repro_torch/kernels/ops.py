@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import interaction as _interaction
 from repro_torch.kernels import ref
 from repro_torch.kernels import sls as _sls
+from repro_torch.kernels import updates as _updates
 
 IMPLS = ("cuda", "torch")
 
@@ -168,3 +169,23 @@ def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor,
     if _use_kernel(impl, part_h):
         return _interaction.fused_resume(c4, part_h)
     return ref.fused_resume_ref(part_c, part_h)
+
+
+def apply_deltas(cold: torch.Tensor, hot: torch.Tensor,
+                 page_scales: torch.Tensor, page_to_shard: torch.Tensor,
+                 page_to_slot: torch.Tensor, rows: torch.Tensor,
+                 deltas: torch.Tensor, page_size: int, rows_per_shard: int,
+                 impl: str = "cuda") -> None:
+    """Fold unique-row deltas (U, D) into the rows ``rows`` (U,) of the
+    cold and hot tiers, in place (an int8 cold row in its page's quantized
+    domain, through one fma); a negative row is a pad."""
+    _updates.check_apply_deltas(cold, hot, page_scales, page_to_shard,
+                                page_to_slot, rows, deltas)
+    if _use_kernel(impl, cold):
+        _updates.apply_deltas(cold, hot, page_scales, page_to_shard,
+                              page_to_slot, rows, deltas, page_size,
+                              rows_per_shard)
+    else:
+        ref.apply_deltas_ref(cold, hot, page_scales, page_to_shard,
+                             page_to_slot, rows, deltas, page_size,
+                             rows_per_shard)

@@ -284,3 +284,67 @@ def fused_resume_ref(part_c: torch.Tensor, part_h: torch.Tensor
     if part_c.dim() == 4:
         part_c = shard_sum(part_c)
     return dot_interaction_ref(part_c + part_h)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """float32 ``fma(a, b, c)``: ``a * b + c`` rounded once, on any device,
+    for float32 operands whose product ``a * b`` is exact in float64 (an
+    int8 code times a float32 scale: 8 + 24 significant bits).
+
+    The float64 sum ``p + c`` is one rounding of the exact sum; rounding
+    it again to float32 is wrong only where it lands exactly on a float32
+    halfway point that the exact sum is not.  So the sum is first rounded
+    to odd (Boldo and Melquiond): its error term (TwoSum, exact in
+    float64) says whether the sum was inexact, and an inexact sum with an
+    even last bit moves one float64 ulp toward the exact value.  A sum
+    rounded to odd in 53 bits rounds correctly to 24, so the result is the
+    fma's, bit for bit.  Round-to-odd needs one correction where a TwoSum
+    splice would need a second float32 rounding of the error, so it is the
+    one chosen."""
+    p = a.double() * b.double()              # exact
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)         # s + err == p + cd exactly
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)   # toward the exact sum
+    return torch.where(odd, bits + step, bits).view(torch.float64).float()
+
+
+def apply_deltas_ref(cold: torch.Tensor, hot: torch.Tensor,
+                     page_scales: torch.Tensor, page_to_shard: torch.Tensor,
+                     page_to_slot: torch.Tensor, rows: torch.Tensor,
+                     deltas: torch.Tensor, page_size: int,
+                     rows_per_shard: int) -> None:
+    """Fold unique-row deltas into both tiers in place -- the plain version
+    of the ``apply_deltas`` kernel, equal to the reference's update
+    (``repro/core/pifs.py:_build_update_plan``) bit for bit.
+
+    A negative row is a pad and writes nothing.  A hot page's row and an
+    fp32 cold row add the delta; an int8 cold row takes
+    ``clamp(round(fma(q, scale, delta) / scale), -127, 127)`` under its
+    page's carried scale (:func:`fma_f32`: the reference's XLA contracts
+    the dequantize-add into one fma), or keeps its codes where the scale
+    is not positive.  For finite deltas."""
+    keep = torch.nonzero(rows >= 0)[:, 0]
+    r = rows[keep].long()
+    d = deltas[keep]
+    page = r // page_size
+    shard = page_to_shard[page].long()
+    local = page_to_slot[page].long() * page_size + r % page_size
+    is_hot = shard == -1                       # paging.HOT_SHARD
+    h = torch.nonzero(is_hot)[:, 0]
+    c = torch.nonzero(~is_hot)[:, 0]
+    hot[local[h]] = hot[local[h]] + d[h]
+    pos = shard[c] * rows_per_shard + local[c]
+    if cold.dtype == torch.int8:
+        q = cold[pos]
+        s = page_scales[page[c]][:, None]
+        v = fma_f32(q.float(), s.expand_as(d[c]), d[c])
+        safe = torch.where(s > 0, s, torch.ones_like(s))
+        q_new = torch.round(v / safe).clamp(-127, 127).to(torch.int8)
+        cold[pos] = torch.where(s > 0, q_new, q)
+    else:
+        cold[pos] = cold[pos] + d[c]

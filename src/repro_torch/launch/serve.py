@@ -15,9 +15,12 @@ between micro-batches (``--observe-every``, ``--replan-every``).
 ``--mode pifs|pond|beacon`` is the engine's mode (every mode, beacon too,
 gets the same hot tier, and the engine serves beacon as pifs); the cold
 tier's shard count is :func:`build_serving`'s ``n_shards`` (the
-reference CLI has no flag for its mesh either).  The reference's
-streaming-update, scrub and mesh-fault regimes raise until ``ROADMAP.md``
-queue 1 items 11-13 port them.
+reference CLI has no flag for its mesh either).  ``--update-qps`` arms the
+streaming-update stream (``--update-batch`` rows per trainer batch,
+``--wal`` to write-ahead-log every applied batch), drained between
+micro-batches with its staleness in the summary.  The reference's scrub
+and mesh-fault regimes raise until ``ROADMAP.md`` queue 1 items 12 and 13
+port them.
 """
 from __future__ import annotations
 
@@ -27,27 +30,26 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.wal import WriteAheadLog
 from repro_torch.configs import DLRMConfig, get_config, reduced
 from repro_torch.core.pifs import ServeBinding
+from repro_torch.core.updates import UpdateConfig
 from repro_torch.device import DeviceLike
 from repro_torch.serving.batcher import (BatcherConfig, DynamicBatcher,
                                          FixedBatcher, ServiceModel)
 from repro_torch.serving.loadgen import (LoadConfig, bind_model,
                                          closed_loop_factory,
                                          dummy_request_factory, make_padder,
-                                         prime_dedup_auto, request_stream)
+                                         prime_dedup_auto, request_stream,
+                                         update_stream)
 from repro_torch.serving.request import ArrivalConfig, Request
 from repro_torch.serving.runtime import (BindingExecutor, ClosedLoopSource,
                                          OpenLoopSource, RuntimeConfig,
                                          ServingRuntime)
+from repro_torch.serving.updates import StreamingUpdater
 
 
-def _not_ported(update_qps: float = 0.0, update_cfg=None,
-                wal_path: Optional[str] = None, scrub: bool = False,
-                mesh_faults: bool = False) -> None:
-    if update_qps > 0 or update_cfg is not None or wal_path:
-        raise NotImplementedError("streaming updates are not ported yet "
-                                  "(ROADMAP.md queue 1 item 11)")
+def _not_ported(scrub: bool = False, mesh_faults: bool = False) -> None:
     if scrub:
         raise NotImplementedError("--scrub is not ported yet (ROADMAP.md "
                                   "queue 1 item 12)")
@@ -93,15 +95,33 @@ def build_serving(cfg: DLRMConfig, device: DeviceLike = None, *,
     return runtime, binding
 
 
+def make_updater(binding: ServeBinding, cfg: DLRMConfig, load: LoadConfig,
+                 update_cfg: Optional[UpdateConfig] = None,
+                 wal_path: Optional[str] = None
+                 ) -> Optional[StreamingUpdater]:
+    """The ``StreamingUpdater`` of ``load``'s update stream (none when
+    ``load.update_qps`` is 0), logging to a WAL at ``wal_path`` if one is
+    given."""
+    if load.update_qps <= 0:
+        return None
+    return StreamingUpdater(
+        binding, update_stream(cfg, load), update_cfg or UpdateConfig(),
+        wal=WriteAheadLog(wal_path) if wal_path else None)
+
+
 def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
                      cfg: DLRMConfig, load: LoadConfig,
-                     closed_loop_users: int = 0) -> Dict[str, object]:
+                     closed_loop_users: int = 0,
+                     updater: Optional[StreamingUpdater] = None
+                     ) -> Dict[str, object]:
     """Warm every bucket, serve the stream, and report the runtime's
     summary plus the steady-state signature count (``steady_traces``,
     which must be 0), the re-plans taken while serving, the front-end and
     dedup resolutions, the measured per-bucket dedup factors, and (this
     port only) each bucket's warmup service time
-    (``warmup_service_ms``)."""
+    (``warmup_service_ms``).  An ``updater`` is warmed before the stats
+    reset, drains on the runtime's maintenance seam, and reports under
+    ``updates``."""
     dummies = dummy_request_factory(cfg, storage=load.storage)
     warm = runtime.warmup(dummies)
     # the open-loop stream is only materialised when something uses it
@@ -113,6 +133,9 @@ def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
         # with a prefix of the live stream, then resolve the buckets again
         # against the primed histogram (still before steady state)
         warm = runtime.warmup(dummies)
+    if updater is not None:
+        updater.warmup()              # the apply signature, before steady
+        runtime.updater = updater
     binding.reset_plan_stats()        # steady state begins here
     binding.dedup_stats.clear()       # drop warmup-dummy observations
     warm_replans = binding.replans
@@ -131,6 +154,8 @@ def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
     summary["replans"] = binding.replans - warm_replans
     summary["dedup_factors"] = binding.dedup_report()
     summary["warmup_service_ms"] = {k: v * 1e3 for k, v in warm.items()}
+    if updater is not None:
+        summary["updates"] = updater.report()
     return summary
 
 
@@ -142,7 +167,8 @@ def serve_offered_load(cfg: DLRMConfig, load: LoadConfig, *,
                        runtime_cfg: RuntimeConfig = RuntimeConfig(),
                        closed_loop_users: int = 0,
                        validate_ids: bool = False, n_shards: int = 1,
-                       update_cfg=None, wal_path: Optional[str] = None,
+                       update_cfg: Optional[UpdateConfig] = None,
+                       wal_path: Optional[str] = None,
                        mesh_faults: bool = False, scrub: bool = False,
                        ) -> Dict[str, object]:
     """End to end: bind, warm every bucket, serve the stream, and report
@@ -151,17 +177,24 @@ def serve_offered_load(cfg: DLRMConfig, load: LoadConfig, *,
     streams need it for the tables' page-rounded offsets), the gather-once
     knob in ``load.dedup``, the front end in ``load.front_end``.
     ``device`` and ``n_shards`` take the place of the reference's mesh.
-    The streaming-update (``load.update_qps``, ``update_cfg``,
-    ``wal_path``), scrub and mesh-fault regimes raise until ``ROADMAP.md``
-    queue 1 items 11, 12 and 13 port them."""
-    _not_ported(load.update_qps, update_cfg, wal_path, scrub, mesh_faults)
+
+    ``load.update_qps > 0`` arms the streaming-update stream
+    (``update_stream``), drained between micro-batches by a
+    ``StreamingUpdater`` of ``update_cfg`` (warmed before the stats
+    reset); with ``wal_path`` every applied batch is write-ahead-logged
+    there.  The summary then carries ``updates`` (the updater's report)
+    and ``staleness``.  The scrub and mesh-fault regimes raise until
+    ``ROADMAP.md`` queue 1 items 12 and 13 port them."""
+    _not_ported(scrub, mesh_faults)
     runtime, binding = build_serving(
         cfg, device, mode=mode, impl=impl, batcher=batcher,
         batch_sizes=batch_sizes, poolings=load.poolings, slo_ms=load.slo_ms,
         hot_fraction=hot_fraction, storage=load.storage, dedup=load.dedup,
         front_end=load.front_end, runtime_cfg=runtime_cfg,
         validate_ids=validate_ids, n_shards=n_shards)
-    return run_offered_load(runtime, binding, cfg, load, closed_loop_users)
+    return run_offered_load(runtime, binding, cfg, load, closed_loop_users,
+                            make_updater(binding, cfg, load, update_cfg,
+                                         wal_path))
 
 
 def serve(binding: ServeBinding, step, requests: Sequence[Request],
@@ -233,7 +266,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--validate-ids", action="store_true",
                     help="raise on out-of-range embedding ids (checked on "
                          "the host) instead of serving the clamped row")
-    ap.add_argument("--update-qps", type=float, default=0.0)
+    ap.add_argument("--update-qps", type=float, default=0.0,
+                    help="> 0 arms the streaming embedding-update stream "
+                         "(delta rows/second on the virtual clock), "
+                         "drained between micro-batches")
+    ap.add_argument("--update-batch", type=int, default=64,
+                    help="rows per trainer-emitted delta batch")
+    ap.add_argument("--wal", default=None, metavar="PATH",
+                    help="write-ahead-log applied update batches to PATH")
     ap.add_argument("--scrub", action="store_true")
     ap.add_argument("--mesh-faults", action="store_true")
     ap.add_argument("--observe-every", type=int, default=4,
@@ -243,8 +283,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    _not_ported(args.update_qps, scrub=args.scrub,
-                mesh_faults=args.mesh_faults)
+    _not_ported(args.scrub, args.mesh_faults)
 
     cfg = get_config(args.arch)
     if not args.full:
@@ -254,7 +293,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         arrival=ArrivalConfig(rate_qps=args.qps, process=args.arrival,
                               seed=args.seed),
         slo_ms=args.slo_ms, seed=args.seed, storage=args.storage,
-        dedup=args.dedup, front_end=args.front_end)
+        dedup=args.dedup, front_end=args.front_end,
+        update_qps=args.update_qps, update_batch=args.update_batch)
     # every mode, beacon too, gets the reference CLI's hot tier
     # (hot_fraction=0.05); the engine serves beacon as pifs
     runtime, binding = build_serving(
@@ -265,7 +305,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         runtime_cfg=RuntimeConfig(observe_every=args.observe_every,
                                   replan_every=args.replan_every))
     out = run_offered_load(runtime, binding, cfg, load,
-                           closed_loop_users=args.closed_loop_users)
+                           closed_loop_users=args.closed_loop_users,
+                           updater=make_updater(binding, cfg, load,
+                                                wal_path=args.wal))
     scores = runtime.executor.scores
     out["scores"] = np.asarray([scores[i] for i in range(args.requests)
                                 if i in scores], np.float32)
@@ -274,10 +316,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dev = binding.engine.device
     out["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu")
-    hidden = ("scores", "latency_hist", "front_end", "dedup_factors")
+    hidden = ("scores", "latency_hist", "front_end", "dedup_factors",
+              "staleness", "updates")
     for k, v in out.items():
         if k not in hidden:
             print(f"  {k:24s} {v}")
+    if "updates" in out:
+        print("  -- streaming updates --")
+        for k, v in out["updates"].items():
+            print(f"  {k:24s} {v}")
+    staleness = out.get("staleness")
+    if staleness is not None:
+        print("  -- staleness (rows / seconds behind) --")
+        print(f"  rows_behind   p50={staleness['rows_behind_p50']:.1f} "
+              f"p99={staleness['rows_behind_p99']:.1f} "
+              f"max={staleness['rows_behind_max']:.1f}")
+        print(f"  seconds_behind p50={staleness['seconds_behind_p50']:.4f} "
+              f"p99={staleness['seconds_behind_p99']:.4f} "
+              f"max={staleness['seconds_behind_max']:.4f}")
     for label, rec in out["front_end"].items():
         print(f"  front_end[{label}]  requested={rec['requested']} "
               f"resolved={rec['resolved']} (tp={rec['tp']})")

@@ -4,8 +4,9 @@ The DLRM half of ``repro.serving.loadgen``: it builds the
 ``ServeBinding`` (engine + model + serve steps) for a config on one
 device, provides the request -> bucket padder, fabricates warmup dummies,
 and turns the trace distributions (``repro_torch.data.traces``) into
-per-request open-loop or closed-loop streams with SLO deadlines attached
--- the reference's streams, bit for bit.
+per-request open-loop or closed-loop streams with SLO deadlines attached,
+and the trainer-side delta stream (:func:`update_stream`) -- the
+reference's streams, bit for bit.
 
 Request features are host numpy, one example each: ``dense (n_dense,)``
 and ``indices (T, L_r)`` (global row ids, variable per-request pooling
@@ -29,8 +30,10 @@ from repro_torch.models.params import initialize
 from repro_torch.serving.batcher import (Bucket, pad_pooled_indices,
                                          stack_feature)
 from repro_torch.serving.request import ArrivalConfig, Request, arrival_times
+from repro_torch.serving.updates import UpdateBatch
 
 _DENSE_TAG = 0xD0
+_DELTA_TAG = 0xDE17A
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +58,7 @@ class LoadConfig:
     #                                      n_shards > 1 and in pond
     update_qps: float = 0.0              # streaming embedding updates: delta
     #                                      rows/second on the virtual clock
-    #                                      (0 = no update stream; item 11)
+    #                                      (0 = no update stream)
     update_batch: int = 64               # rows per trainer-emitted delta batch
 
 
@@ -100,8 +103,8 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
                storage: str = "fp32", dedup: str = "off",
                front_end: str = "split", degraded_variants: bool = False,
                validate_ids: bool = False, scrub_scores: bool = False,
-               n_shards: int = 1, profile: Sequence[Request] = ()
-               ) -> ServeBinding:
+               n_shards: int = 1, profile: Sequence[Request] = (),
+               update_capacity: int = 0) -> ServeBinding:
     """Engine + random weights + state + serve steps for a DLRM config on
     ``device`` (the card unless ``"cpu"``), as the reference's
     ``bind_model`` builds them on a mesh.
@@ -112,7 +115,9 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     the plain versions), ``dedup`` and ``front_end`` configure the serve
     step; ``degraded_variants`` adds the brown-out rungs
     (:func:`_dlrm_steps`); ``validate_ids`` / ``scrub_scores`` arm the
-    binding's host-side guards.  Tables and weights are drawn from
+    binding's host-side guards; ``update_capacity`` (> 0) sets the
+    binding's fixed streaming-update apply width (rows per device chunk:
+    one signature).  Tables and weights are drawn from
     generators seeded with ``seed``, on the device itself.  ``profile``
     (this port only) places the hot tier before serving: ``observe`` over
     its requests, then ``plan_and_migrate``; without it the hot tier
@@ -131,8 +136,12 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     step, steps = _dlrm_steps(model, engine, mode=mode, impl=impl,
                               dedup=dedup, front_end=front_end,
                               degraded_variants=degraded_variants)
-    return ServeBinding(engine, state, model, step, steps=steps,
-                        validate_ids=validate_ids, scrub_scores=scrub_scores)
+    binding = ServeBinding(engine, state, model, step, steps=steps,
+                           validate_ids=validate_ids,
+                           scrub_scores=scrub_scores, impl=impl)
+    if update_capacity > 0:
+        binding.update_capacity = int(update_capacity)
+    return binding
 
 
 def make_padder(cfg: DLRMConfig
@@ -200,6 +209,44 @@ def closed_loop_factory(cfg: DLRMConfig, load: LoadConfig
                                                storage=load.storage),
                        pooling=ids.shape[1], user=user)
     return make_dlrm
+
+
+def update_stream(cfg: DLRMConfig, load: LoadConfig, scale: float = 1e-3
+                  ) -> List[UpdateBatch]:
+    """The trainer-side delta stream for an offered load.
+
+    Batches of ``load.update_batch`` rows arrive at ``load.update_qps``
+    delta rows/second on the request stream's virtual clock, covering its
+    horizon (the last arrival).  Rows follow the load's trace distribution
+    from an independent ``TraceGenerator`` (seed + 1) with its own drift,
+    so updates skew hot as trainer output does; deltas are gaussians of
+    ``scale``, keyed per batch.  Empty when ``update_qps`` is 0."""
+    if load.update_qps <= 0:
+        return []
+    if not isinstance(cfg, DLRMConfig):
+        raise TypeError(
+            "update streams address engine-global row ids; only DLRM "
+            f"configs are supported (got {type(cfg).__name__})")
+    times = arrival_times(load.arrival, load.n_requests)
+    horizon = float(times[-1]) if len(times) else 0.0
+    interval = load.update_batch / load.update_qps
+    n_batches = max(1, int(horizon / interval) + 1)
+    per_table = -(-load.update_batch // cfg.n_tables)
+    gen = TraceGenerator(TraceConfig(
+        n_rows=cfg.emb_num, n_tables=cfg.n_tables, pooling=per_table,
+        batch=1, distribution=load.distribution, seed=load.seed + 1))
+    offs = (np.arange(cfg.n_tables, dtype=np.int64)
+            * padded_rows(cfg, storage=load.storage))[:, None]
+    out: List[UpdateBatch] = []
+    for k in range(n_batches):
+        ids = gen.next_batch()[0] + offs             # (T, per_table)
+        rows = ids.reshape(-1)[: load.update_batch].astype(np.int64)
+        rng = np.random.default_rng([load.seed, _DELTA_TAG, k])
+        deltas = (rng.normal(size=(rows.size, cfg.emb_dim)) * scale
+                  ).astype(np.float32)
+        out.append(UpdateBatch(seq=k + 1, t_gen=(k + 1) * interval,
+                               rows=rows, deltas=deltas))
+    return out
 
 
 def prime_dedup_auto(binding: ServeBinding, requests: Sequence[Request],

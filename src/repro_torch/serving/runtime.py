@@ -23,8 +23,14 @@ maintenance (``account_maintenance=True`` charges it to the serving path
 instead -- the pessimistic bound).  Wall time spent is always recorded in
 metrics.
 
-The reference runtime's fault-policy, streaming-update, scrub and
-straggler hooks come with ``ROADMAP.md`` queue 1 items 11-13.
+Streaming updates
+-----------------
+An ``updater`` (``serving/updates.StreamingUpdater``) rides the same seam:
+after each micro-batch's observe / re-plan it samples staleness and drains
+the due delta batches, recorded as maintenance kind ``"updates"``.
+
+The reference runtime's fault-policy, scrub and straggler hooks come with
+``ROADMAP.md`` queue 1 items 12 and 13.
 """
 from __future__ import annotations
 
@@ -183,7 +189,8 @@ class ServingRuntime:
                  padder: Optional[Callable[[Sequence[Request], Bucket],
                                            dict]] = None,
                  cfg: RuntimeConfig = RuntimeConfig(),
-                 service_model: Optional[ServiceModel] = None):
+                 service_model: Optional[ServiceModel] = None,
+                 updater=None):
         # an executor that pads (BindingExecutor) is its own padder: a
         # second padder would leave its scores without their requests
         own = getattr(executor, "pad", None)
@@ -197,6 +204,7 @@ class ServingRuntime:
         self.service_model = service_model or ServiceModel()
         self.metrics = ServingMetrics()
         self.n_batches = 0
+        self.updater = updater
 
     # ----------------------------------------------------------- warmup
     def warmup(self, request_factory: Callable[[int, int], Request],
@@ -275,6 +283,15 @@ class ServingRuntime:
                 self.metrics.record_maintenance("replan", dt)
                 if cfg.account_maintenance:
                     finish += dt
+            if self.updater is not None:
+                # streaming updates: drain the due delta batches on the
+                # maintenance seam; the updater samples staleness into the
+                # metrics at every boundary, drained or not
+                dt = self.updater.on_batch(finish, self.metrics)
+                if dt:
+                    self.metrics.record_maintenance("updates", dt)
+                    if cfg.account_maintenance:
+                        finish += dt
             for r in reqs:
                 r.start_s = now
                 r.finish_s = finish

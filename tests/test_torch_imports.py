@@ -29,7 +29,9 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) >= 30, names\n"
         "for m in ('core.planner', 'serving.loadgen', 'serving.metrics',\n"
-        "          'serving.runtime'):\n"
+        "          'serving.runtime', 'core.updates', 'checkpoint.wal',\n"
+        "          'checkpoint.checkpointer', 'serving.updates',\n"
+        "          'kernels.updates'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

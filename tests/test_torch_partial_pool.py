@@ -321,12 +321,16 @@ def test_partial_pool_input_contracts():
 
 
 def test_registry_lists_every_tpu_kernel():
-    """Eight kernels, nine TPU kernels (row 2 is row 1 with a null mask),
-    three sources."""
+    """Eight kernels for the nine TPU kernels (row 2 is row 1 with a null
+    mask) in three sources, and ``apply_deltas``, which replaces the
+    reference's jnp update (no Pallas kernel), in a fourth."""
     k = build.KERNELS
-    assert len(k) == 8
+    assert len(k) == 9
     assert {v.stem for v in k.values()} == {"masked_sls", "dot_interaction",
-                                            "fused_front_end"}
+                                            "fused_front_end",
+                                            "apply_deltas"}
+    assert sum("src/repro/kernels/" in v.replaces for v in k.values()) == 8
+    assert "src/repro/core/pifs.py:1232" in k["apply_deltas"].replaces
     for name, line in (("fused_partial_pool", "sls.py:750"),
                        ("fused_partial_pool_dedup", "sls.py:818"),
                        ("fused_resume", "sls.py:871")):

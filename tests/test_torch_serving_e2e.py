@@ -22,6 +22,8 @@ among its known ten failures (``ROADMAP.md`` queue 3).  The port-only
 checks below are the port's own, held on the port alone; none is copied
 from those tests.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -306,7 +308,9 @@ def test_serve_offered_load_on_cpu(users):
     """serve_offered_load on the CPU, open loop and closed loop: every
     request served, none dropped, no signature new after warmup, re-plans
     taken on the cadence, the observe-cadence dedup probe recorded per
-    bucket, and a warmup service time per bucket."""
+    bucket, and a warmup service time per bucket; with an update stream,
+    batches applied and staleness sampled at every boundary; the scrub and
+    mesh-fault regimes still raise, naming their items."""
     _, cfg = _cfgs()
     load = _load(loadgen, ArrivalConfig, storage="int8", front_end="fused")
     out = srv.serve_offered_load(
@@ -320,8 +324,15 @@ def test_serve_offered_load_on_cpu(users):
     assert set(out["warmup_service_ms"]) == {
         f"{b}x{l}" for b in SIZES for l in POOLINGS}
     assert out["p99.9_ms"] >= out["p99_ms"] >= out["p50_ms"] > 0
-    with pytest.raises(NotImplementedError, match=r"item 11\)"):
-        srv.serve_offered_load(cfg, loadgen.LoadConfig(
-            4, ArrivalConfig(10.0), update_qps=5.0), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 12\)"):
         srv.serve_offered_load(cfg, load, device="cpu", scrub=True)
+    with pytest.raises(NotImplementedError, match=r"item 13\)"):
+        srv.serve_offered_load(cfg, load, device="cpu", mesh_faults=True)
+    # streaming updates run: every generated batch due in the horizon is
+    # applied, and staleness is sampled at every batch boundary
+    up = srv.serve_offered_load(
+        cfg, dataclasses.replace(load, update_qps=400.0, update_batch=16),
+        device="cpu", batch_sizes=SIZES, closed_loop_users=users)
+    assert up["served"] == N and up["steady_traces"] == 0
+    assert up["updates"]["applied_batches"] > 0
+    assert up["staleness"]["samples"] == up["batches"]
