@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all in parallel; the gather-once kernels,
    the partial pools and the resume share the sources of the kernels they
    vary);
@@ -119,7 +119,36 @@
    flushed) beside its plain version, its bound and, fp32, ``index_add_``
    per tier; and a durability round trip at RMC4 int8 and RMC1 fp32
    (snapshot, 3 batches, both tiers overwritten, ``restore``): state and
-   scores bitwise, with the snapshot, restore and replay times.
+   scores bitwise, with the snapshot, restore and replay times;
+10. integrity phase: the ``page_checksums`` kernel on whole RMC4 stores
+   (fp32 and int8, 1 and 4 shards, a hot tier placed from a profile):
+   bitwise equal to its plain version on every page and on pad entries,
+   to ``page_checksum_host`` on every page, and (4 shards) to the
+   1-shard store's checksums on pages in the same tier; timed over the
+   whole store and a 64-page window (CUDA events, L2 flushed) beside its
+   bound, the plain version over the whole store, and on the host clock
+   a whole-store ledger build, ``verify`` and ``export``.  Then phase 9's
+   path at RMC4 (fp32 and int8) with the scrubber (a quarter of the store
+   audited per batch), a checkpointer and seeded bit flips landing while
+   it serves, one ``integrity`` JSON line each (latency, scrub report,
+   repair MTTR); launch counts zeroed just before and read just after
+   (``page_checksums`` and ``apply_deltas`` must have run): every flipped
+   page detected and repaired, none quarantined, the ledger equal to the
+   store after the run; under the pinned service model the flipped and
+   repaired run ends with ``cold``, ``hot`` and ``page_scales`` bitwise
+   equal to a twin run on the same stream without flips;
+11. faults phase at RMC4 (fp32 and int8) on 4 shards, fused:
+   ``serve_offered_load(mesh_faults=True)`` at 200 qps (one ``faults``
+   JSON line each: one re-mesh 4 -> 2, every request served or counted
+   failed, no signature new after warmup, the re-mesh MTTR), launch counts
+   zeroed just before and read just after (the partial pools and the
+   resume must have run); the same regime under the pinned service model,
+   then fixed batches bitwise equal through the recovered binding and a
+   fresh 2-shard binding packed from its export; transient failures and
+   stragglers under the degradation controller (finite scores, retries,
+   watchdog trips); and ``corrupt_store(mode='nan')`` -> ``scrub_scores``
+   -> ``wants_restore`` -> ``restore``: scores bitwise equal to the clean
+   ones.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -2032,6 +2061,9 @@ def apply_deltas_timing(b, batches, timer: Timer, arch: str,
     plain()
     assert_equal(got[0], st.cold[cp], f"apply_deltas {arch} {storage} cold")
     assert_equal(got[1], st.hot[hp], f"apply_deltas {arch} {storage} hot")
+    err = max([float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, (st.cold[cp], st.hot[hp]))
+               if g.numel()] or [0.0])
     lib = None
     if storage == "fp32":
         dh, dc = dt[hmask], dt[~hmask]
@@ -2047,7 +2079,7 @@ def apply_deltas_timing(b, batches, timer: Timer, arch: str,
     flops = n_hot * D + n_cold * D * (4 if storage == "int8" else 1)
     row = {"name": "apply_deltas", "arch": arch,
            "storage": storage, "rows": U, "hot_rows": n_hot, "dim": D,
-           "n_shards": c.n_shards, "max_abs_err": 0.0, "ms": timer(kernel),
+           "n_shards": c.n_shards, "max_abs_err": err, "ms": timer(kernel),
            "plain_ms": timer(plain),
            "library_ms": None if lib is None else timer(lib),
            **bound(nbytes, flops)}
@@ -2281,6 +2313,678 @@ def updates_phase(gen: torch.Generator) -> tuple:
     return lines, timing, dur, launches
 
 
+# ------------------------------------------------------ integrity phase
+SCRUB_SWEEP = 4          # the scrub window covers the store in 4 batches
+SCRUB_FLIPS = dict(bit_flip_at=(3, 11, 29, 57, 97), bit_flip_rows=2,
+                   bit_flip_tier="both", seed=7)
+
+
+def _u64(cs: np.ndarray) -> np.ndarray:
+    cs = cs.astype(np.uint64)
+    return (cs[:, 1] << np.uint64(32)) | cs[:, 0]
+
+
+def checksum_bytes(eng, st, pages: torch.Tensor) -> int:
+    """What a ``page_checksums`` call over ``pages`` must move: each listed
+    page's lanes in its tier once (cold codes or values, hot fp32), its
+    page-table entries and scale, the page id, 16 bytes out."""
+    from repro_torch.core.paging import HOT_SHARD
+    c = eng.cfg
+    valid = pages[pages >= 0].long()
+    n_hot = int((st.page_to_shard[valid] == HOT_SHARD).sum())
+    lanes = c.page_size * c.dim
+    return (n_hot * lanes * 4 + (valid.numel() - n_hot) * lanes
+            * st.cold.element_size() + valid.numel() * 12
+            + pages.numel() * (4 + 16))
+
+
+def checksum_edge_checks(gen: torch.Generator) -> int:
+    """The page_checksums kernel on its own at shapes no RMC4 store gives:
+    D = 18 with 5-row pages (90 lanes: no page spans whole 16-byte chunks,
+    so both scalar instantiations run) and D = 16 with 8-row pages (the
+    16-byte path); fp32 and int8, 1 and 4 shards, a hot tier.  Each page
+    list holds every page in a shuffled order, pads (-1) and ids past the
+    end (P, P + 5: the clamp to the last page).  Bitwise equal to the
+    plain version; pads are zero, a clamped id equals the last page."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.integrity import vec_pages
+
+    n_cases = 0
+    for storage in ("fp32", "int8"):
+        for S in (1, TP):
+            for D, ps, vec in ((18, 5, 0), (16, 8, 1)):
+                cold_slots, n_hot = 24, 8             # pages per shard, hot
+                P = S * cold_slots - 5 + n_hot        # a few slots unused
+                perm = torch.randperm(P, generator=gen, device="cuda")
+                p2s = torch.empty(P, dtype=torch.int32, device="cuda")
+                slot = torch.empty(P, dtype=torch.int32, device="cuda")
+                p2s[perm[:n_hot]] = -1                # paging.HOT_SHARD
+                slot[perm[:n_hot]] = torch.arange(
+                    n_hot, dtype=torch.int32, device="cuda")
+                rest = torch.arange(P - n_hot, dtype=torch.int32,
+                                    device="cuda")
+                p2s[perm[n_hot:]] = rest % S
+                slot[perm[n_hot:]] = rest // S
+                rps = cold_slots * ps
+                if storage == "int8":
+                    cold = torch.randint(-127, 128, (S * rps, D),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int8)
+                else:
+                    cold = torch.randn((S * rps, D), generator=gen,
+                                       device="cuda")
+                hot = torch.randn((n_hot * ps, D), generator=gen,
+                                  device="cuda")
+                scales = torch.rand(P, generator=gen, device="cuda") + 0.01
+                pages = torch.cat([
+                    torch.randperm(P, generator=gen, device="cuda"),
+                    torch.tensor([-1, P, P + 5, -1, P - 1],
+                                 device="cuda")]).to(torch.int32)
+                tag = f"page_checksums edge {storage} S={S} D={D} ps={ps}"
+                check(vec_pages(ps, D, cold, hot) == vec,
+                      f"{tag}: vec_pages is not {vec}")
+                args = (cold, hot, scales, p2s, slot, pages, ps, rps)
+                got = ops.page_checksums(*args)
+                assert_equal(got, ops.page_checksums(*args, impl="torch"),
+                             tag)
+                check(bool((got[[P, P + 3]] == 0).all()),
+                      f"{tag}: a pad is not zero")
+                check(bool((got[[P + 1, P + 2]] == got[P + 4]).all()),
+                      f"{tag}: an id past the end is not the last page")
+                n_cases += 1
+    return n_cases
+
+
+SCRUB_AIMED = 2          # flips aimed at pages updated since the snapshot
+
+
+class AimedFlips:
+    """The run's ``StreamingUpdater``, and after its turn of the
+    maintenance seam a one-bit flip in a row the update stream changed
+    since the binding's last snapshot (read from the WAL), on a page the
+    scrubber audits next, up to ``SCRUB_AIMED`` flips from the second
+    sweep on.  Each such page's repair must replay its WAL tail (through
+    the ``apply_deltas`` kernel) to come back bitwise.  The scrubber is
+    read from ``runtime`` at each turn (``run_offered_load`` arms it
+    after the updater); the flip's cost is not in the drain time
+    returned."""
+
+    def __init__(self, updater, runtime, seed: int = 11):
+        self.inner, self.runtime = updater, runtime
+        self.rng = np.random.default_rng(seed)
+        self.turns = 0
+        self.events = []         # [{turn, page, row, col, wal_seq_from}]
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def on_batch(self, now: float, metrics=None) -> float:
+        dt = self.inner.on_batch(now, metrics)
+        self.turns += 1
+        scrub = self.runtime.scrubber
+        if (scrub is not None and len(self.events) < SCRUB_AIMED
+                and self.turns > SCRUB_SWEEP):
+            self._aim(scrub)
+        return dt
+
+    def _aim(self, scrub) -> None:
+        from repro_torch.core.paging import HOT_SHARD
+
+        b = self.inner.binding
+        c = b.engine.cfg
+        snap_seq = int(b.checkpointer.extra().get("update_seq", 0))
+        if b.update_seq <= snap_seq:
+            return
+        rows = np.concatenate([r for seq, r, _ in b.wal.replay()
+                               if seq > snap_seq])
+        rows = rows[rows >= 0].astype(np.int64)
+        page = rows // c.page_size
+        done = [e["page"] for e in self.events]
+        keep = ((page - scrub.cursor) % c.num_pages < scrub.window) \
+            & ~np.isin(page, done)
+        if not keep.any():
+            return
+        row = int(rows[keep][0])
+        page = row // c.page_size
+        shard = int(b.state.page_to_shard[page])
+        pos = int(b.state.page_to_slot[page]) * c.page_size \
+            + row % c.page_size
+        tier = b.state.hot if shard == HOT_SHARD else b.state.cold
+        if shard != HOT_SHARD:
+            pos += shard * c.rows_per_shard
+        col = int(self.rng.integers(0, c.dim))
+        if tier.dtype == torch.int8:
+            view, bit = tier.view(torch.uint8), int(self.rng.integers(0, 8))
+        else:
+            view, bit = tier.view(torch.int32), int(self.rng.integers(0, 23))
+        view[pos, col] ^= 1 << bit
+        self.events.append({"turn": self.turns, "page": page, "row": row,
+                            "col": col, "wal_seq_from": snap_seq + 1})
+
+
+def integrity_kernel_checks(gen: torch.Generator, timer: Timer) -> list:
+    """The ``page_checksums`` kernel on whole RMC4 stores (fp32 and int8,
+    1 and 4 shards, a hot tier placed from a profile): bitwise equal to
+    its plain version on every page and on pad entries, equal to
+    ``page_checksum_host`` on every page; the 4-shard store's checksums
+    equal the 1-shard store's on every page both hold in the same tier
+    (the same content).  Times the kernel over the whole store and over a
+    64-page window (CUDA events, L2 flushed), the plain version over the
+    whole store, and, on the host clock, a whole-store ledger build and
+    ``verify``, and the ledger's ``export`` (the manifest payload)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.integrity import (PageChecksumLedger,
+                                            page_checksum_host)
+    from repro_torch.core.paging import HOT_SHARD
+    from repro_torch.kernels import ops
+    from repro_torch.serving import loadgen
+
+    cfg = get_config("rmc4")
+    rows = []
+    for storage in ("fp32", "int8"):
+        one = None
+        for S in (1, TP):
+            t0 = time.perf_counter()
+            b = loadgen.bind_model(cfg, "cuda", storage=storage, n_shards=S,
+                                   profile=stream(cfg, 64, 0, storage))
+            eng, st = b.engine, b.state
+            c = eng.cfg
+            P = c.num_pages
+            pages = torch.cat([torch.arange(P, dtype=torch.int32,
+                                            device="cuda"),
+                               torch.tensor([-1, -1, -1], dtype=torch.int32,
+                                            device="cuda")])
+            common = (st.cold, st.hot, st.page_scales, st.page_to_shard,
+                      st.page_to_slot)
+            geo = (c.page_size, c.rows_per_shard)
+            got = ops.page_checksums(*common, pages, *geo)
+            want = ops.page_checksums(*common, pages, *geo, impl="torch")
+            tag = f"page_checksums rmc4 {storage} S={S}"
+            assert_equal(got, want, tag)
+            check(bool((got[P:] == 0).all()), f"{tag}: a pad is not zero")
+            cs = _u64(got[:P].cpu().numpy())
+            cold, hot = st.cold.cpu().numpy(), st.hot.cpu().numpy()
+            p2s = st.page_to_shard.cpu().numpy()
+            slot = st.page_to_slot.cpu().numpy().astype(np.int64)
+            scales = st.page_scales.cpu().numpy()
+            ps = c.page_size
+            for p in range(P):
+                first = slot[p] * ps
+                if p2s[p] == HOT_SHARD:
+                    page_rows = hot[first:first + ps]
+                else:
+                    first += int(p2s[p]) * c.rows_per_shard
+                    page_rows = cold[first:first + ps]
+                if page_checksum_host(page_rows, scales[p]) != int(cs[p]):
+                    fail(f"{tag}: page {p} differs from page_checksum_host")
+            del cold, hot
+            hot_mask = p2s == HOT_SHARD
+            if one is None:
+                one = (cs, hot_mask)
+            else:
+                same = hot_mask == one[1]
+                check(bool((cs[same] == one[0][same]).all())
+                      and same.mean() > 0.9,
+                      f"{tag}: checksums differ from one shard's on pages "
+                      f"in the same tier ({same.mean():.4f} of pages)")
+            check_s = time.perf_counter() - t0
+            window = pages[P // 3:P // 3 + 64].contiguous()
+            whole = pages[:P].contiguous()
+            nbytes = checksum_bytes(eng, st, whole)
+            wbytes = checksum_bytes(eng, st, window)
+            lanes = c.page_size * c.dim
+            row = {"name": "page_checksums", "arch": "rmc4",
+                   "storage": storage, "n_shards": S, "pages": P,
+                   "hot_pages": int(hot_mask.sum()), "check": "bitwise",
+                   "host_twin_pages": P, "check_s": check_s,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "ms": timer(lambda: ops.page_checksums(*common, whole,
+                                                          *geo)),
+                   **bound(nbytes, 3 * P * lanes),
+                   "window_ms": timer(lambda: ops.page_checksums(
+                       *common, window, *geo)),
+                   "window_bound_ms": bound(wbytes, 3 * 64 * lanes)[
+                       "bound_ms"],
+                   "library_ms": None}
+            # write_page (plain PyTorch: host lookups, two slice copies) of
+            # a cold page's own content, beside the slice copy alone
+            cold_pages = np.nonzero(~hot_mask)[0]
+            wp = int(cold_pages[cold_pages.size // 2])
+            first = (int(p2s[wp]) * c.rows_per_shard
+                     + int(slot[wp]) * c.page_size)
+            dst = st.cold[first:first + c.page_size]
+            src = dst.clone()
+            zeros = torch.zeros((c.page_size, c.dim), device="cuda")
+            row["write_page_ms"] = timer(lambda: eng.write_page(
+                st, wp, src, zeros, float(scales[wp])))
+            row["write_page_copy_ms"] = timer(lambda: dst.copy_(src))
+            row["write_page_bound_ms"] = bound(
+                2 * src.numel() * src.element_size() + 12, 0)["bound_ms"]
+            assert_equal(dst, src, f"{tag}: write_page of a page's content")
+            if S == 1:
+                slow = Timer(reps=3)
+                row["plain_ms"] = slow(lambda: ops.page_checksums(
+                    *common, whole, *geo, impl="torch"))
+                del slow
+            walls = {"build_s": [], "verify_s": [], "export_s": []}
+            for _ in range(3):
+                t1 = time.perf_counter()
+                led = PageChecksumLedger.build(eng, st)
+                walls["build_s"].append(time.perf_counter() - t1)
+                t1 = time.perf_counter()
+                bad = led.verify(st)
+                walls["verify_s"].append(time.perf_counter() - t1)
+                check(bad.size == 0, f"{tag}: verify found {bad.size} pages")
+                t1 = time.perf_counter()
+                exported = led.export()
+                walls["export_s"].append(time.perf_counter() - t1)
+            row.update({k: statistics.median(v) for k, v in walls.items()})
+            row["export_json_bytes"] = len(json.dumps(exported))
+            rows.append(row)
+            print(f"{tag}: bitwise equal to the plain version on {P} pages "
+                  f"and 3 pads, to page_checksum_host on every page; "
+                  f"{json.dumps(row)}", flush=True)
+            del b, eng, st, common, got, want, led, exported
+            torch.cuda.empty_cache()
+    return rows
+
+
+def scrub_run(cfg, storage, impl="cuda", pin=False, flips=True,
+              scrub=True) -> dict:
+    """``serve_offered_load``'s path with a live update stream (as phase 9),
+    a WAL and, with ``scrub``, the integrity regime: the checksum ledger, a
+    checkpointer in a temp dir (removed after) and a ``ScrubController``
+    whose window sweeps the store every ``SCRUB_SWEEP`` batches; with
+    ``flips``, ``SCRUB_FLIPS``' seeded bit flips land in live pages while
+    the run serves, and with both, ``AimedFlips`` lands ``SCRUB_AIMED``
+    more in rows updated since the snapshot, whose repairs must replay the
+    WAL tail.  Returns the printed line, the flush trace and the
+    binding."""
+    import math
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.wal import WriteAheadLog
+    from repro_torch.core.updates import UpdateConfig
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.batcher import FixedServiceModel
+    from repro_torch.serving.faults import FaultConfig
+    from repro_torch.serving.loadgen import LoadConfig, update_stream
+    from repro_torch.serving.request import ArrivalConfig
+    from repro_torch.serving.scrub import ScrubConfig
+    from repro_torch.serving.updates import StreamingUpdater
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scrub_")
+    try:
+        load = LoadConfig(RT_N, ArrivalConfig(RT_QPS, seed=0),
+                          slo_ms=RT_SLO_MS, seed=0, storage=storage,
+                          update_qps=UP_QPS, update_batch=UP_BATCH)
+        t0 = time.perf_counter()
+        rt, b = srv.build_serving(
+            cfg, "cuda", impl=impl, batch_sizes=RT_SIZES, slo_ms=RT_SLO_MS,
+            storage=storage, service=FixedServiceModel(**RT_PIN) if pin
+            else None)
+        updater = StreamingUpdater(
+            b, update_stream(cfg, load), UpdateConfig(capacity=UP_CAP),
+            wal=WriteAheadLog(os.path.join(tmp, "u.wal")))
+        window = math.ceil(b.engine.cfg.num_pages / SCRUB_SWEEP)
+        aimed = AimedFlips(updater, rt) if flips and scrub else None
+        s = srv.run_offered_load(
+            rt, b, cfg, load, updater=aimed or updater,
+            scrub=ScrubConfig(pages_per_cycle=window) if scrub else None,
+            scrub_dir=os.path.join(tmp, "ck"),
+            faults=FaultConfig(**SCRUB_FLIPS) if flips else None)
+        updater.drain()
+        b._sync()
+        wall = time.perf_counter() - t0
+        tag = f"scrub {cfg.name} {storage} impl={impl} pin={pin} " \
+              f"flips={flips}"
+        check(s["served"] == RT_N and s["dropped"] == s["failed"] == 0,
+              f"{tag}: served {s['served']} of {RT_N}")
+        check(s["steady_traces"] == 0,
+              f"{tag}: {s['steady_traces']} signatures new after warmup")
+        line = {"arch": cfg.name, "storage": storage, "impl": impl,
+                "pinned": pin, "flips": flips, "requests": RT_N,
+                "offered_qps": RT_QPS, "update_qps": UP_QPS,
+                **{k: s[k] for k in ("served", "batches", "p50_ms", "p99_ms",
+                                     "p99.9_ms", "qps", "bucket_mix",
+                                     "replans", "steady_traces",
+                                     "maintenance_calls", "maintenance_s")},
+                "wall_s": wall}
+        flipped = []
+        if flips:
+            events = rt.executor.bit_flip_events
+            flipped = {p for e in events for p in e["pages"]}
+            check(len(events) == len(SCRUB_FLIPS["bit_flip_at"]),
+                  f"{tag}: {len(events)} flip events")
+            if aimed is not None:
+                check(len(aimed.events) == SCRUB_AIMED,
+                      f"{tag}: {len(aimed.events)} of {SCRUB_AIMED} aimed "
+                      "flips found a page updated since the snapshot")
+                flipped |= {e["page"] for e in aimed.events}
+                line["aimed_flips"] = aimed.events
+            flipped = sorted(flipped)
+            line["flipped_pages"] = flipped
+        if scrub:
+            rep = s["scrub_run"]
+            line["scrub_run"] = {k: rep[k] for k in (
+                "cycles", "pages_per_cycle", "pages_audited",
+                "pages_detected", "pages_repaired", "sweep_cycles",
+                "sweeps_completed", "coverage", "quarantined")}
+            line["repairs"] = rep["repairs"]
+            for k in ("repair_mttr_mean_s", "repair_mttr_max_s"):
+                line[k] = rep.get(k)
+            line["scrub_mean_ms"] = (s["maintenance_s"]["scrub"]
+                                     / s["maintenance_calls"]["scrub"] * 1e3)
+            check(sorted(rep["detections"]) == flipped
+                  and sorted({r["page"] for r in rep["repairs"]}) == flipped
+                  and rep["quarantined"] == [],
+                  f"{tag}: flipped {flipped}, scrub report {rep}")
+            if aimed is not None:
+                for e in aimed.events:
+                    check(any(r["page"] == e["page"] and r["wal_batches"] > 0
+                              for r in rep["repairs"]),
+                          f"{tag}: aimed page {e['page']} repaired with no "
+                          f"WAL batch replayed ({rep['repairs']})")
+            check(b.integrity.verify(b.state).size == 0,
+                  f"{tag}: the ledger disagrees with the store after the "
+                  "run")
+            if not pin:
+                # a snapshot's cost with the ledger in its manifest, and
+                # without it
+                t1 = time.perf_counter()
+                b.snapshot()
+                line["snapshot_ledger_s"] = time.perf_counter() - t1
+                line["manifest_bytes"] = len(json.dumps(
+                    b.checkpointer.manifest()))
+                ledger, b.integrity = b.integrity, None
+                t1 = time.perf_counter()
+                b.snapshot()
+                line["snapshot_s"] = time.perf_counter() - t1
+                b.integrity = ledger
+        trace = [(r.t, r.bucket.batch, r.bucket.pooling, r.n_real)
+                 for r in rt.metrics.batches]
+        return {"line": line, "trace": trace, "binding": b}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def integrity_phase(gen: torch.Generator) -> tuple:
+    """Phase 10: the ``page_checksums`` kernel at small edge shapes
+    (``checksum_edge_checks``) and on whole RMC4 stores
+    (``integrity_kernel_checks``); then ``serve_offered_load``'s path at
+    RMC4 (fp32 and int8) with updates, a WAL, a checkpointer and the
+    scrubber, seeded bit flips landing while it serves and flips aimed at
+    pages with a WAL tail (``scrub_run``), launch counts zeroed just
+    before and read just after: every flipped page detected and repaired,
+    each aimed page through its WAL tail, none left quarantined; under the pinned
+    service model the flipped-and-repaired run ends with ``cold``, ``hot``
+    and ``page_scales`` equal to a twin run on the same stream without
+    flips or scrubber."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    n_edge = checksum_edge_checks(gen)
+    print(f"page_checksums: bitwise equal to the plain version in {n_edge} "
+          "edge cases (scalar and 16-byte paths, pads, ids past the end)",
+          flush=True)
+    timer = Timer()
+    rows = integrity_kernel_checks(gen, timer)
+    del timer
+    torch.cuda.empty_cache()
+    cfg = get_config("rmc4")
+    lines = []
+    build.reset_launches()
+    for storage in ("fp32", "int8"):
+        r = scrub_run(cfg, storage)
+        lines.append(r["line"])
+        print("integrity " + json.dumps(r["line"]), flush=True)
+        del r
+        torch.cuda.empty_cache()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    for k in ("page_checksums", "apply_deltas", "masked_sls",
+              "dot_interaction"):
+        check(launches[k] > 0, f"integrity phase: kernel {k} not launched")
+    for storage in ("fp32", "int8"):
+        k = scrub_run(cfg, storage, pin=True)
+        kb = k.pop("binding")
+        tw = scrub_run(cfg, storage, pin=True, flips=False, scrub=False)
+        tb = tw.pop("binding")
+        tag = f"integrity rmc4 {storage}: repaired vs unflipped twin"
+        check(k["trace"] == tw["trace"], f"{tag}: flush traces differ")
+        for f in ("cold", "hot", "page_scales"):
+            assert_equal(getattr(kb.state, f), getattr(tb.state, f),
+                         f"{tag}: {f}")
+        wal = sum(r["wal_batches"] for r in k["line"]["repairs"])
+        print(f"{tag}: flush traces equal ({len(k['trace'])} batches), "
+              f"{len(k['line']['flipped_pages'])} flipped pages repaired "
+              f"({wal} WAL batches replayed), cold/hot/page_scales bitwise "
+              f"equal", flush=True)
+        del kb, tb, k, tw
+        torch.cuda.empty_cache()
+    print(f"integrity phase: {len(lines)} measured runs in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return rows, lines, launches
+
+
+# ---------------------------------------------------------- faults phase
+def mesh_faults_run(cfg, storage) -> dict:
+    """``serve_offered_load(mesh_faults=True)`` itself at RMC4 on 4 shards,
+    fused, Poisson 200 qps: one re-mesh 4 -> 2, every request served or
+    counted failed, no signature new after warmup."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.loadgen import LoadConfig
+    from repro_torch.serving.request import ArrivalConfig
+
+    load = LoadConfig(RT_N, ArrivalConfig(RT_QPS, seed=0), slo_ms=RT_SLO_MS,
+                      seed=0, storage=storage, front_end="fused")
+    t0 = time.perf_counter()
+    s = srv.serve_offered_load(cfg, load, device="cuda",
+                               batch_sizes=RT_SIZES, mesh_faults=True,
+                               n_shards=TP)
+    wall = time.perf_counter() - t0
+    tag = f"faults {cfg.name} {storage} mesh_faults"
+    rec = s["remesh"]
+    check(s["served"] + s["failed"] == RT_N and s["dropped"] == 0,
+          f"{tag}: {s['served']} served + {s['failed']} failed of {RT_N}")
+    check(s["remeshes"] == 1 and rec["from_mesh"] == {"data": 1, "model": TP}
+          and rec["to_mesh"] == {"data": 1, "model": 2},
+          f"{tag}: re-mesh {rec}")
+    check(s["steady_traces"] == 0,
+          f"{tag}: {s['steady_traces']} signatures new after warmup")
+    return {"arch": cfg.name, "storage": storage, "front_end": "fused",
+            "n_shards": TP, "requests": RT_N, "offered_qps": RT_QPS,
+            **{k: s[k] for k in ("served", "failed", "failed_batches",
+                                 "retries", "batches", "p50_ms", "p99_ms",
+                                 "p99.9_ms", "availability", "remeshes",
+                                 "steady_traces", "faults_fired",
+                                 "maintenance_s")},
+            "remesh": rec, "degradation": {
+                k: s["degradation"][k] for k in (
+                    "rung", "n_transitions", "breaker_trips", "remeshes",
+                    "straggler_trips")},
+            "watchdog_trips": s["watchdog"]["trips"], "wall_s": wall}
+
+
+def remesh_bitwise_run(cfg, storage) -> dict:
+    """The same regime composed by hand (``build_serving(elastic=True)``,
+    ``arm_mesh_faults``, ``run_offered_load(faults=...)``) under the pinned
+    service model, then fixed batches through the recovered binding and
+    through a fresh 2-shard binding packed from its export: bitwise
+    equal scores."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.batcher import Bucket, FixedServiceModel
+    from repro_torch.serving.faults import FaultConfig
+    from repro_torch.serving.request import ArrivalConfig
+
+    load = loadgen.LoadConfig(RT_N, ArrivalConfig(RT_QPS, seed=0),
+                              slo_ms=RT_SLO_MS, seed=0, storage=storage,
+                              front_end="fused")
+    rt, b = srv.build_serving(
+        cfg, "cuda", batch_sizes=RT_SIZES, slo_ms=RT_SLO_MS,
+        storage=storage, front_end="fused", n_shards=TP, elastic=True,
+        service=FixedServiceModel(**RT_PIN))
+    srv.arm_mesh_faults(rt, b)
+    s = srv.run_offered_load(rt, b, cfg, load,
+                             faults=FaultConfig(seed=13, shard_loss_at=(2,)))
+    tag = f"faults {cfg.name} {storage} pinned re-mesh"
+    check(b.remeshes == 1 and b.engine.cfg.n_shards == 2
+          and s["steady_traces"] == 0, f"{tag}: {s.get('remesh')}")
+    fresh = loadgen.bind_model(cfg, "cuda", storage=storage,
+                               front_end="fused", n_shards=2)
+    fresh.model.load_state_dict(b.model.state_dict())
+    codes, values, scales = b.engine.export_state(b.state)
+    fresh.state = fresh.engine.pack_state(codes, values, scales,
+                                          table=b.state.page_table,
+                                          counts=b.state.counts)
+    del codes, values, scales
+    padder = loadgen.make_padder(cfg)
+    reqs = stream(cfg, 64, 3, storage)
+    n = 0
+    for size in RT_SIZES:
+        batch = padder(reqs[:size], Bucket(size, cfg.pooling))
+        got, want = b.execute(batch), fresh.execute(batch)
+        assert_equal(got, want, f"{tag}: batch {size}")
+        check(bool(torch.isfinite(got).all()), f"{tag}: scores not finite")
+        n += size
+    out = {"arch": cfg.name, "storage": storage, "check": "bitwise",
+           "scores_compared": n, "remesh": s["remesh"],
+           "failed": s["failed"], "served": s["served"]}
+    del rt, b, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def chaos_run(cfg, storage) -> dict:
+    """Transient failures (bursts of 2 attempts) and stragglers (service
+    times x 8) under the degradation controller and the watchdog, RMC4 on
+    4 shards, fused: every request served or failed, finite scores."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.faults import FaultConfig
+    from repro_torch.serving.loadgen import LoadConfig
+    from repro_torch.serving.request import ArrivalConfig
+
+    load = LoadConfig(RT_N, ArrivalConfig(RT_QPS, seed=0), slo_ms=RT_SLO_MS,
+                      seed=0, storage=storage, front_end="fused")
+    rt, b = srv.build_serving(cfg, "cuda", batch_sizes=RT_SIZES,
+                              slo_ms=RT_SLO_MS, storage=storage,
+                              front_end="fused", n_shards=TP, elastic=True)
+    srv.arm_mesh_faults(rt, b)
+    s = srv.run_offered_load(rt, b, cfg, load, faults=FaultConfig(
+        seed=5, transient_prob=0.05, transient_runs=2, straggler_prob=0.05,
+        straggler_factor=8.0))
+    tag = f"faults {cfg.name} {storage} transient+straggler"
+    scores = np.asarray([v for k, v in rt.executor.scores.items() if k >= 0],
+                        np.float32)
+    check(s["served"] + s["failed"] == RT_N and s["served"] > 0,
+          f"{tag}: {s['served']} + {s['failed']} of {RT_N}")
+    check(scores.size == s["served"] and bool(np.isfinite(scores).all()),
+          f"{tag}: {scores.size} scores, finite {np.isfinite(scores).all()}")
+    check(s["retries"] > 0 and s["faults_fired"]["straggler"] > 0,
+          f"{tag}: faults {s['faults_fired']}")
+    check(s["steady_traces"] == 0, f"{tag}: new signatures")
+    out = {"arch": cfg.name, "storage": storage,
+           **{k: s[k] for k in ("served", "failed", "failed_batches",
+                                "retries", "p50_ms", "p99_ms", "availability",
+                                "faults_fired", "steady_traces")},
+           "degradation": {k: s["degradation"][k] for k in (
+               "rung", "n_transitions", "breaker_trips", "straggler_trips")},
+           "watchdog_trips": s["watchdog"]["trips"]}
+    del rt, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def heal_run(cfg, storage) -> dict:
+    """``corrupt_store(mode='nan')`` on a 4-shard binding's hot tier: the
+    score scrub zeroes the NaN scores and counts them, two poisoned batches
+    make the degradation controller want a restore, and ``restore`` heals:
+    scores bitwise equal to the clean ones."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.degradation import DegradationController
+    from repro_torch.serving.faults import corrupt_store
+    from repro_torch.serving.batcher import Bucket
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_heal_")
+    try:
+        reqs = stream(cfg, 64, 0, storage)
+        b = loadgen.bind_model(cfg, "cuda", storage=storage, n_shards=TP,
+                               front_end="fused", scrub_scores=True,
+                               profile=reqs)
+        batch = loadgen.make_padder(cfg)(reqs[:32], Bucket(32, cfg.pooling))
+        clean = b.execute(batch).clone()
+        t0 = time.perf_counter()
+        b.attach_checkpointer(Checkpointer(tmp, keep=1))
+        snapshot_s = time.perf_counter() - t0
+        b.reset_plan_stats()
+        ctrl = DegradationController(binding=b)
+        n_bad = corrupt_store(b, frac=0.25, seed=1, mode="nan")
+        poisoned = []
+        while not ctrl.wants_restore and len(poisoned) < 8:
+            out = b.execute(batch)
+            poisoned.append(b.last_poisoned)
+            check(bool(torch.isfinite(out).all()),
+                  "heal: a scrubbed score is not finite")
+            ctrl.on_batch_done(0.0, ok=True, poisoned=b.last_poisoned)
+        tag = f"faults {cfg.name} {storage} heal"
+        check(ctrl.wants_restore and all(poisoned),
+              f"{tag}: poisoned rows per batch {poisoned}")
+        t0 = time.perf_counter()
+        b.restore()
+        restore_s = time.perf_counter() - t0
+        ctrl.note_restored()
+        assert_equal(b.execute(batch), clean, f"{tag}: healed scores")
+        check(b.last_poisoned == 0 and b.plan_stats()["traces"] == 0,
+              f"{tag}: still poisoned or a new signature")
+        return {"arch": cfg.name, "storage": storage, "n_shards": TP,
+                "check": "bitwise", "poisoned_rows_corrupted": n_bad,
+                "poisoned_per_batch": poisoned,
+                "restores": ctrl.report()["restores"],
+                "snapshot_s": snapshot_s, "restore_s": restore_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def faults_phase() -> tuple:
+    """Phase 11: the degraded-mesh regime at RMC4 (fp32 and int8) on 4
+    shards, fused -- ``serve_offered_load(mesh_faults=True)``, launch
+    counts zeroed just before and read just after (the partial pools and
+    the resume ran before and after the re-mesh); the pinned composition
+    with bitwise post-re-mesh scores; a transient and straggler run under
+    the controller; and a NaN store healed by the restore the controller
+    asks for."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    cfg = get_config("rmc4")
+    lines = []
+    build.reset_launches()
+    for storage in ("fp32", "int8"):
+        line = mesh_faults_run(cfg, storage)
+        lines.append(line)
+        print("faults " + json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    for k in ("fused_partial_pool", "fused_resume"):
+        check(launches[k] > 0, f"faults phase: kernel {k} not launched")
+    checks = [remesh_bitwise_run(cfg, s) for s in ("fp32", "int8")]
+    checks.append(chaos_run(cfg, "fp32"))
+    checks.append(heal_run(cfg, "int8"))
+    for c in checks:
+        print("faults " + json.dumps(c), flush=True)
+    print(f"faults phase: {len(lines)} measured runs in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return lines, checks, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU",
@@ -2318,6 +3022,9 @@ def main() -> None:
     _, rt_launches = runtime_phase()
     _, up_timing, _, up_launches = updates_phase(gen)
     details += up_timing
+    integ_rows, _, integ_launches = integrity_phase(gen)
+    details += integ_rows
+    _, _, fault_launches = faults_phase()
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
@@ -2338,6 +3045,20 @@ def main() -> None:
             "fused_resume": ("fused_resume", "tp")}
     kernels = []
     for k in build.KERNELS.values():
+        if k.name == "page_checksums":  # phase 10's path, the whole store
+            d = next(x for x in integ_rows if x["storage"] == "fp32"
+                     and x["n_shards"] == 1)
+            kernels.append({
+                "name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": integ_launches[k.name],
+                **{key: d[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")},
+                "runtime_launches": rt_launches[k.name],
+                "faults_launches": fault_launches[k.name],
+                "shape": f"rmc4 fp32 whole store, {d['pages']} pages "
+                         f"({d['hot_pages']} hot), 1 shard"})
+            continue
         if k.name == "apply_deltas":    # phase 9's path, at a full chunk
             d = next(x for x in up_timing if x["storage"] == "fp32")
             kernels.append({

@@ -25,8 +25,8 @@ same values as 'psum', the whole (B, G, D) batch (one device holds every
 bag slice).  There is no dp axis: the batch is one data-parallel group.
 
 State is an ``EngineState`` of tensors; every method is functional but the
-streaming updates (:meth:`apply_deltas`, :meth:`requant_hot_pages`), which
-write the tiers in place.  State crosses from the reference engine as the
+streaming updates (:meth:`apply_deltas`, :meth:`requant_hot_pages`) and
+the page repair (:meth:`write_page`), which write the tiers in place.  State crosses from the reference engine as the
 placement-free triple of ``export_state`` plus a page table, into
 :meth:`pack_state`.
 
@@ -707,6 +707,67 @@ class PIFSEmbeddingEngine:
             quant.quantize_rows(state.hot[rows], s), s)
         return state
 
+    # ------------------------------------------------------------ integrity
+    def page_checksums(self, state: EngineState, pages,
+                       impl: str = "cuda") -> torch.Tensor:
+        """Per-page Fletcher-pair checksums over native-domain content
+        (``core/integrity.py``).
+
+        ``pages``: (K,) global page ids (host array or tensor), -1 for
+        pads.  Returns (K, 2) ``[s1, s2]`` per page, zeros for pads: the
+        reference's uint32 values, held in int64 (torch's uint32 has few
+        operations).  A cold page is read from its shard's slice, a hot
+        page from the hot tier, each with its scale's bits folded in.  One
+        launch of the ``page_checksums`` kernel on the card for any K
+        (``impl`` as for lookups), so one signature per storage, not per
+        K as the reference's one plan per K."""
+        pages = self._as(pages, torch.int32)
+        if pages.dim() != 1:
+            raise ValueError(f"pages must be (K,); got {tuple(pages.shape)}")
+        self._note_signature(("checksum", self.cfg.storage, "int32"))
+        return kernel_ops.page_checksums(
+            state.cold, state.hot, state.page_scales, state.page_to_shard,
+            state.page_to_slot, pages, self.cfg.page_size,
+            self.cfg.rows_per_shard, impl=impl)
+
+    def write_page(self, state: EngineState, page, cold_rows, hot_rows,
+                   scale) -> EngineState:
+        """Overwrite ONE page's resident rows and scale, in place (the
+        repair path: the page's content from a snapshot and the WAL tail).
+
+        ``page``: a global page id, or -1, which writes nothing (warmup).
+        ``cold_rows``: (page_size, D) in the cold tier's dtype,
+        ``hot_rows``: (page_size, D) fp32, ``scale``: the page's carried
+        scale.  Only the payload of the page's *current* tier lands; pass
+        zeros for the other.  The reference scatters into new arrays; like
+        :meth:`apply_deltas`, this writes the live tiers and returns
+        ``state``.  Plain indexing copies (the reference's scatter is jnp,
+        no Pallas kernel); one signature per storage."""
+        c = self.cfg
+        page = int(page)
+        if page >= c.num_pages:
+            raise ValueError(f"write_page: page {page} outside [0, "
+                             f"{c.num_pages})")
+        ps, D = c.page_size, c.dim
+        if tuple(np.shape(cold_rows)) != (ps, D) or \
+                tuple(np.shape(hot_rows)) != (ps, D):
+            raise ValueError(f"page payloads must be ({ps}, {D}); got "
+                             f"{tuple(np.shape(cold_rows))} / "
+                             f"{tuple(np.shape(hot_rows))}")
+        self._note_signature(("page_write", c.storage))
+        if page < 0:
+            return state
+        shard = int(state.page_to_shard[page])
+        first = int(state.page_to_slot[page]) * ps
+        if shard == HOT_SHARD:
+            state.hot[first:first + ps] = self._as(hot_rows, torch.float32)
+        else:
+            first += shard * c.rows_per_shard
+            state.cold[first:first + ps] = self._as(cold_rows,
+                                                    self.cold_dtype)
+        state.page_scales[page] = float(np.float32(scale))
+        return state
+
     # ----------------------------------------------------------- the blocks
     def _address(self, state: EngineState, idx: torch.Tensor):
         """Each entry's storage row (local to its tier's slice), the
@@ -864,11 +925,20 @@ class ServeBinding:
       * ``attach_checkpointer`` / :meth:`snapshot` / :meth:`restore` --
         commit the state (the WAL truncates) and reload it between
         micro-batches, replaying the WAL's suffix, so a restore loses no
-        update.
+        update;
+      * :meth:`attach_integrity` -- the per-page checksum ledger
+        (``core/integrity.py``), kept current by every mutation path here,
+        recorded in every snapshot and adopted by :meth:`restore`; with a
+        WAL and a checkpointer, an int8 tier flip is fenced by a snapshot,
+        so a page repair never replays the WAL across one;
+      * :meth:`attach_remesher` / :meth:`remesh` -- elastic recovery from
+        a lost shard: the engine is rebuilt with the survivor plan's
+        shard count (``runtime/elastic.py``) and every serve-step variant
+        rebuilt by the rebinder; signatures counted before the swap carry
+        across it in :meth:`plan_stats`.
 
-    ``impl`` is the route of the update kernel, as the steps' is of the
-    lookups.  The reference's elastic re-mesh (``ROADMAP.md`` queue 1 item
-    13) and integrity ledger (item 12) are not ported yet."""
+    ``impl`` is the route of the update and checksum kernels, as the
+    steps' is of the lookups."""
 
     idx_key = "indices"                    # batch entry feeding the profiler
 
@@ -904,6 +974,17 @@ class ServeBinding:
         self.update_capacity = 256
         self.update_seq = 0
         self.updates_applied = 0     # total unique rows applied
+        # silent-corruption detection: the per-page checksum ledger, kept
+        # current by every mutation path below; None = disarmed
+        self.integrity = None
+        # elastic re-mesh: the rebinder rebuilds the serve-step variants
+        # for a new engine (only loadgen knows model families, so it owns
+        # the callable); prefer_tp is the survivor-mesh policy's knob
+        self._rebind = None          # engine -> (step, steps or None)
+        self.prefer_tp = 4
+        self.remeshes = 0
+        self.remesh_events: list = []
+        self._carried_traces = 0     # signatures first seen before a remesh
 
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
@@ -972,13 +1053,34 @@ class ServeBinding:
 
     def replan(self) -> dict:
         """Plan from the histogram and migrate; returns the planner's
-        stats.  Waits for the card, as :meth:`observe` does.  (The
-        reference's integrity branch, a WAL fence after a tier flip, comes
-        with ``ROADMAP.md`` queue 1 item 12.)"""
+        stats.  Waits for the card, as :meth:`observe` does.  With the
+        ledger armed, pages that flipped tier are re-recorded, and at int8
+        with a WAL and a checkpointer a flip is fenced by a snapshot:
+        quantized read-modify-writes (cold) and fp32 adds (hot) do not
+        commute through a flip, so a WAL tail across one could not be
+        replayed bitwise onto a snapshot page."""
+        old_p2s = self._p2s() if self.integrity is not None else None
         self.state, stats = self.engine.plan_and_migrate(self.state)
         self._sync()
         self.replans += 1
+        if self.integrity is not None:
+            flipped = self.integrity.note_tier_changes(
+                self.state, old_p2s, self.state.page_to_shard)
+            if flipped.size:
+                self._fence()
         return stats
+
+    def _p2s(self) -> np.ndarray:
+        """A host copy of the live page-to-shard map."""
+        return np.array(host(self.state.page_to_shard), copy=True)
+
+    def _fence(self) -> None:
+        """The WAL fence of a mutation the WAL cannot represent (an int8
+        tier flip, a requant snap): a snapshot, which truncates the WAL,
+        so a page repair replays nothing across it."""
+        if (self.engine.quantized and self.wal is not None
+                and self.checkpointer is not None):
+            self.snapshot()
 
     # ------------------------------------------------------------- updates
     def attach_wal(self, wal) -> None:
@@ -1008,7 +1110,10 @@ class ServeBinding:
                                                   d_chunk, impl=self.impl)
         self._sync()
         self.updates_applied += int(rows.size)
-        # (the reference refreshes its integrity ledger here: item 12)
+        if self.integrity is not None:
+            # every page a delta landed in is re-recorded from the
+            # post-apply state
+            self.integrity.note_rows(self.state, rows)
         return int(rows.size)
 
     def replay_wal(self, after_seq: int = 0) -> int:
@@ -1028,13 +1133,30 @@ class ServeBinding:
 
     def requant_hot_pages(self, pages) -> int:
         """Snap listed hot pages onto their carried-scale grid (the engine
-        op, then a wait for the card).  Returns the number of non-pad pages
-        listed.  (The reference's ledger update and WAL fence here come
-        with its integrity ledger, ``ROADMAP.md`` queue 1 item 12.)"""
+        op, then a wait for the card); with the ledger armed, re-record
+        them and fence (:meth:`replan` says why).  Returns the number of
+        non-pad pages listed."""
         pages = np.asarray(pages, np.int32).ravel()
         self.state = self.engine.requant_hot_pages(self.state, pages)
         self._sync()
-        return int((pages >= 0).sum())
+        valid = pages[pages >= 0]
+        if self.integrity is not None and valid.size:
+            self.integrity.note_pages(self.state, valid)
+            self._fence()
+        return int(valid.size)
+
+    # ------------------------------------------------------------ integrity
+    def attach_integrity(self, ledger=None, chunk: int = 64) -> None:
+        """Arm the per-page checksum ledger over the live state: build a
+        fully recorded ``core.integrity.PageChecksumLedger`` (one kernel
+        launch on the card), or adopt ``ledger``.  From here every
+        mutation path keeps it current, so a divergence a scrub finds is
+        silent corruption."""
+        from repro_torch.core.integrity import PageChecksumLedger
+        if ledger is None:
+            ledger = PageChecksumLedger.build(self.engine, self.state,
+                                              chunk=chunk, impl=self.impl)
+        self.integrity = ledger
 
     # ------------------------------------------------------------ recovery
     def attach_checkpointer(self, checkpointer, save_now: bool = True
@@ -1054,15 +1176,18 @@ class ServeBinding:
         """Commit the current state (blocking: callers sit on the
         maintenance path).  The manifest's ``extra`` records the last
         applied update sequence number, the mesh (:meth:`_mesh`), the shard
-        count and the cold-tier storage; then the WAL truncates: every
-        logged delta is inside the committed state.  (The reference also
-        records its page-checksum ledger here: item 12.)"""
+        count, the cold-tier storage and, with the ledger armed, the
+        snapshot-time checksums (``page_checksums``: page repair verifies
+        the rows it reads back against them); then the WAL truncates:
+        every logged delta is inside the committed state."""
         if self.checkpointer is None:
             raise RuntimeError("no checkpointer attached")
         self.ckpt_step += 1
         extra = {"update_seq": self.update_seq, "mesh": self._mesh(),
                  "n_shards": int(self.engine.cfg.n_shards),
                  "storage": self.engine.cfg.storage}
+        if self.integrity is not None:
+            extra["page_checksums"] = self.integrity.export()
         self.checkpointer.save(self.ckpt_step, self.state, blocking=True,
                                extra=extra)
         if self.wal is not None:
@@ -1081,9 +1206,10 @@ class ServeBinding:
                 f"(mesh {extra.get('mesh')}), but this engine has "
                 f"n_shards={self.engine.cfg.n_shards} (mesh "
                 f"{self._mesh()}): an in-place restore would silently "
-                "mis-place shards. Restore on an engine matching the "
-                "snapshot's shard count instead (the elastic re-mesh is "
-                "ROADMAP.md queue 1 item 13).")
+                "mis-place shards. Route through the elastic path instead "
+                "-- restore on an engine matching the snapshot's mesh, "
+                "then re-mesh via ServeBinding.remesh() / "
+                "repro_torch.runtime.elastic.remesh_engine().")
         snap_storage = extra.get("storage")
         if (snap_storage is not None
                 and snap_storage != self.engine.cfg.storage):
@@ -1099,8 +1225,9 @@ class ServeBinding:
         tensors (same shapes and dtypes, no second allocation), then, with
         a WAL attached, every batch logged after the snapshot's sequence
         point is replayed through the live apply path, so the state equals
-        the uninterrupted one bit for bit.  No new signature.  (The
-        reference adopts its integrity ledger here: item 12.)"""
+        the uninterrupted one bit for bit.  No new signature.  With the
+        ledger armed it adopts the snapshot-time ledger (a snapshot
+        without one forces a full rebuild); the replay keeps it current."""
         if self.checkpointer is None:
             raise RuntimeError("no checkpointer attached")
         extra = self.checkpointer.extra()
@@ -1108,16 +1235,118 @@ class ServeBinding:
         self.state = self.checkpointer.restore(self.state, into=True)
         self._sync()
         self.restores += 1
+        if self.integrity is not None:
+            rec = extra.get("page_checksums")
+            if rec is not None:
+                self.integrity.load(rec)
+            else:
+                self.integrity.note_pages(
+                    self.state,
+                    np.arange(self.engine.cfg.num_pages, dtype=np.int64))
         if self.wal is not None:
             snap_seq = int(extra.get("update_seq", 0))
             self.update_seq = snap_seq
             self.replay_wal(after_seq=snap_seq)
 
+    # ----------------------------------------------------- elastic re-mesh
+    def attach_remesher(self, rebind, prefer_tp: int = 4) -> None:
+        """Arm elastic recovery: ``rebind(engine) -> (step, steps or
+        None)`` rebuilds the serve-step variants for a re-meshed engine
+        (``serving.loadgen.bind_model(elastic=True)`` owns it);
+        ``prefer_tp`` is the survivor-mesh policy's knob
+        (``runtime/elastic.scale_plan``)."""
+        self._rebind = rebind
+        self.prefer_tp = int(prefer_tp)
+
+    @property
+    def can_remesh(self) -> bool:
+        return self._rebind is not None
+
+    def remesh(self, lost_shard=None, new_mesh=None, heal: bool = False,
+               batch_granule: int = 0) -> dict:
+        """Elastic recovery from a lost shard, between micro-batches (its
+        wall time is recovery, never service time):
+
+          1. quiesce: wait for the card;
+          2. with ``heal``, :meth:`restore` first, on the old shard count
+             the snapshot was written under;
+          3. the survivor mesh: ``tp - 1`` shards survive (dp = 1 on one
+             card); ``scale_plan(survivors, prefer_tp, batch_granule)``
+             picks ``(dp, tp)`` unless ``new_mesh`` (``{"data": dp,
+             "model": tp}``) pins it;
+          4. ``runtime/elastic.remesh_engine``: export, re-plan on the
+             carried histogram, pack into an engine of ``n_shards = tp``
+             on the same card (int8 codes and scales move verbatim);
+          5. the ledger is rebound (page geometry does not depend on the
+             shard count) and the pages the new placement flipped are
+             re-recorded; the rebinder rebuilds every serve-step variant,
+             which the caller re-warms;
+          6. with a checkpointer, a new baseline snapshot: the old one no
+             longer restores in place, and it truncates the WAL.
+
+        Signatures first seen on the old engine carry into
+        :meth:`plan_stats`.  Returns the event (also in
+        ``remesh_events``) with the reference's keys: ``from_mesh``,
+        ``to_mesh`` (``{"data": dp, "model": tp}``), ``lost_shard``,
+        ``n_shards``, ``healed``."""
+        if self._rebind is None:
+            raise RuntimeError(
+                "no rebinder attached -- call attach_remesher() (or "
+                "bind_model(elastic=True)) before remesh()")
+        from repro_torch.runtime.elastic import remesh_engine, scale_plan
+        old_engine = self.engine
+        self._sync()
+        if heal:
+            self.restore()
+        from_mesh = self._mesh()
+        if new_mesh is None:
+            old_tp = int(old_engine.cfg.n_shards)
+            if old_tp < 2:
+                raise RuntimeError(
+                    f"cannot drop a tp shard from mesh {from_mesh}: "
+                    f"tp={old_tp} has no survivor -- shard loss at tp=1 is "
+                    "total loss")
+            (dp, tp), _ = scale_plan(old_tp - 1, prefer_tp=self.prefer_tp,
+                                     batch_granule=batch_granule)
+            new_mesh = {"data": dp, "model": tp}
+        new_mesh = {"data": int(new_mesh["data"]),
+                    "model": int(new_mesh["model"])}
+        old_p2s = self._p2s() if self.integrity is not None else None
+        new_engine, new_state = remesh_engine(
+            old_engine, new_mesh["model"], self.state)
+        self._carried_traces += old_engine.plan_stats()["traces"]
+        self.engine, self.state = new_engine, new_state
+        self._sync()
+        if self.integrity is not None:
+            self.integrity.rebind(new_engine)
+            self.integrity.note_tier_changes(self.state, old_p2s,
+                                             self.state.page_to_shard)
+        step, steps = self._rebind(new_engine)
+        self.steps = dict(steps or {})
+        self.steps.setdefault("full", step)
+        if self.active not in self.steps:
+            self.active = "full"
+        if self.checkpointer is not None:
+            self.snapshot()
+        event = {"from_mesh": from_mesh, "to_mesh": new_mesh,
+                 "lost_shard": lost_shard,
+                 "n_shards": int(new_engine.cfg.n_shards),
+                 "healed": bool(heal)}
+        self.remeshes += 1
+        self.remesh_events.append(event)
+        return event
+
     def plan_stats(self) -> dict:
-        return self.engine.plan_stats()
+        """The engine's stats, with the signatures first seen on engines
+        before a re-mesh added to ``traces``: the no-new-signature contract
+        holds across the whole run."""
+        out = self.engine.plan_stats()
+        out["traces"] += self._carried_traces
+        return out
 
     def reset_plan_stats(self) -> None:
         self.engine.reset_plan_stats()
+        self._carried_traces = 0
 
 
 def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,

@@ -10,9 +10,10 @@ A kernel that varies another shares its source with it: the gather-once
 (dedup) ``masked_sls_dedup`` lives in ``masked_sls.cu``;
 ``fused_front_end_dedup`` and the partial pools ``fused_partial_pool`` and
 ``fused_partial_pool_dedup`` in ``fused_front_end.cu``; ``fused_resume`` in
-``dot_interaction.cu``.  ``apply_deltas`` (``apply_deltas.cu``) replaces
-no Pallas kernel: it is the device half of the reference's streaming
-updates, computed there in jnp.
+``dot_interaction.cu``.  ``apply_deltas`` (``apply_deltas.cu``) and
+``page_checksums`` (``page_checksums.cu``) replace no Pallas kernel: they
+are the device halves of the reference's streaming updates and integrity
+ledger, computed there in jnp.
 The build runs at first use; every missing library is compiled by its own
 ``nvcc`` process, all started together.  The hash covers every source and
 the flags, so an edited source is rebuilt.  Libraries are loaded with
@@ -83,6 +84,9 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
     KernelInfo("apply_deltas",
                "src/repro/core/pifs.py:1232 (_build_update_plan.block: jnp, "
                "no Pallas kernel)"),
+    KernelInfo("page_checksums",
+               "src/repro/core/pifs.py:1394 (_build_checksum_plan.block: "
+               "jnp, no Pallas kernel)"),
 )}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

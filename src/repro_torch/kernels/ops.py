@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import integrity as _integrity
 from repro_torch.kernels import interaction as _interaction
 from repro_torch.kernels import ref
 from repro_torch.kernels import sls as _sls
@@ -189,3 +190,22 @@ def apply_deltas(cold: torch.Tensor, hot: torch.Tensor,
         ref.apply_deltas_ref(cold, hot, page_scales, page_to_shard,
                              page_to_slot, rows, deltas, page_size,
                              rows_per_shard)
+
+
+def page_checksums(cold: torch.Tensor, hot: torch.Tensor,
+                   page_scales: torch.Tensor, page_to_shard: torch.Tensor,
+                   page_to_slot: torch.Tensor, pages: torch.Tensor,
+                   page_size: int, rows_per_shard: int,
+                   impl: str = "cuda") -> torch.Tensor:
+    """Per-page Fletcher pairs of the listed pages (K,) -> (K, 2) int64
+    ``[s1, s2]`` in [0, 2^32) (``core/integrity.py``); a negative page is
+    a pad and gets zeros."""
+    _integrity.check_page_checksums(cold, hot, page_scales, page_to_shard,
+                                    page_to_slot, pages)
+    if _use_kernel(impl, cold):
+        return _integrity.page_checksums(cold, hot, page_scales,
+                                         page_to_shard, page_to_slot, pages,
+                                         page_size, rows_per_shard)
+    return ref.page_checksums_ref(cold, hot, page_scales, page_to_shard,
+                                  page_to_slot, pages, page_size,
+                                  rows_per_shard)

@@ -348,3 +348,55 @@ def apply_deltas_ref(cold: torch.Tensor, hot: torch.Tensor,
         cold[pos] = torch.where(s > 0, q_new, q)
     else:
         cold[pos] = cold[pos] + d[c]
+
+
+_CHECKSUM_BLOCK = 4096   # pages per step of page_checksums_ref
+
+
+def page_checksums_ref(cold: torch.Tensor, hot: torch.Tensor,
+                       page_scales: torch.Tensor,
+                       page_to_shard: torch.Tensor,
+                       page_to_slot: torch.Tensor, pages: torch.Tensor,
+                       page_size: int, rows_per_shard: int) -> torch.Tensor:
+    """Per-page Fletcher pairs -- the plain version of the
+    ``page_checksums`` kernel, equal to the reference's
+    (``repro/core/pifs.py:page_checksums``) and to
+    ``core/integrity.page_checksum_host`` bit for bit.
+
+    ``pages`` (K,) global page ids, -1 for a pad (zeros); an id past the
+    end reads the last page, as the reference's gather clamps it.  Each
+    page's ``N = page_size * D`` lanes (its rows in its current tier,
+    int8 codes as uint8, float32 values as their bits) and its scale bits
+    ``sc`` give ``s1 = sum lane + sc`` and ``s2 = sum lane * (i + 1) + sc
+    * (N + 1)``, mod 2^32.  torch's uint32 has few operations, so the sums
+    are taken in int64 and masked: every product stays below 2^45 at 4 KiB
+    pages, and int64 wraps mod 2^64, a multiple of 2^32, so the low 32 bits
+    are exact anyway.  Pages go ``_CHECKSUM_BLOCK`` at a time, bounding
+    the int64 lanes held at once.  Returns (K, 2) int64 in [0, 2^32)."""
+    dev = cold.device
+    mask = 0xFFFFFFFF
+    n = page_size * cold.shape[1]
+    out = torch.zeros((pages.shape[0], 2), dtype=torch.int64, device=dev)
+    keep = torch.nonzero(pages >= 0)[:, 0]
+    w = torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+    off = torch.arange(page_size, device=dev)
+
+    def lanes(rows: torch.Tensor) -> torch.Tensor:
+        if rows.dtype == torch.int8:
+            return rows.view(torch.uint8).long().reshape(-1, n)
+        return rows.view(torch.int32).long().reshape(-1, n) & mask
+
+    for i in range(0, keep.numel(), _CHECKSUM_BLOCK):
+        k = keep[i:i + _CHECKSUM_BLOCK]
+        pg = pages[k].long().clamp(max=page_to_shard.shape[0] - 1)
+        shard = page_to_shard[pg].long()
+        rows = page_to_slot[pg].long()[:, None] * page_size + off
+        h = torch.nonzero(shard == -1)[:, 0]         # paging.HOT_SHARD
+        c = torch.nonzero(shard != -1)[:, 0]
+        lane = torch.empty((k.numel(), n), dtype=torch.int64, device=dev)
+        lane[h] = lanes(hot[rows[h]])
+        lane[c] = lanes(cold[shard[c, None] * rows_per_shard + rows[c]])
+        sc = page_scales[pg].view(torch.int32).long() & mask
+        out[k, 0] = (lane.sum(1) + sc) & mask
+        out[k, 1] = ((lane * w).sum(1) + sc * (n + 1)) & mask
+    return out

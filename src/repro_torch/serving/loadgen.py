@@ -104,7 +104,8 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
                front_end: str = "split", degraded_variants: bool = False,
                validate_ids: bool = False, scrub_scores: bool = False,
                n_shards: int = 1, profile: Sequence[Request] = (),
-               update_capacity: int = 0) -> ServeBinding:
+               update_capacity: int = 0, elastic: bool = False,
+               prefer_tp: int = 4) -> ServeBinding:
     """Engine + random weights + state + serve steps for a DLRM config on
     ``device`` (the card unless ``"cpu"``), as the reference's
     ``bind_model`` builds them on a mesh.
@@ -117,7 +118,10 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     (:func:`_dlrm_steps`); ``validate_ids`` / ``scrub_scores`` arm the
     binding's host-side guards; ``update_capacity`` (> 0) sets the
     binding's fixed streaming-update apply width (rows per device chunk:
-    one signature).  Tables and weights are drawn from
+    one signature); ``elastic`` arms the binding's re-mesh
+    (``attach_remesher`` with a rebinder that rebuilds every serve-step
+    variant, same knobs, for the re-meshed engine; ``prefer_tp`` the
+    survivor-mesh policy's knob).  Tables and weights are drawn from
     generators seeded with ``seed``, on the device itself.  ``profile``
     (this port only) places the hot tier before serving: ``observe`` over
     its requests, then ``plan_and_migrate``; without it the hot tier
@@ -133,14 +137,19 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
         idx = np.stack([r.features["indices"] for r in profile])
         state = engine.observe(state, torch.as_tensor(idx, device=dev))
         state, _ = engine.plan_and_migrate(state)
-    step, steps = _dlrm_steps(model, engine, mode=mode, impl=impl,
-                              dedup=dedup, front_end=front_end,
-                              degraded_variants=degraded_variants)
+    def rebind(new_engine):
+        return _dlrm_steps(model, new_engine, mode=mode, impl=impl,
+                           dedup=dedup, front_end=front_end,
+                           degraded_variants=degraded_variants)
+
+    step, steps = rebind(engine)
     binding = ServeBinding(engine, state, model, step, steps=steps,
                            validate_ids=validate_ids,
                            scrub_scores=scrub_scores, impl=impl)
     if update_capacity > 0:
         binding.update_capacity = int(update_capacity)
+    if elastic:
+        binding.attach_remesher(rebind, prefer_tp=prefer_tp)
     return binding
 
 

@@ -4,10 +4,9 @@ A numpy copy of ``repro.serving.metrics``, with the same ``summary()``
 keys.  Latencies are kept both raw (exact percentiles) and as a log-spaced
 histogram (the export format that survives aggregation across runs).
 Percentiles reported: p50 / p90 / p99 / p99.9.  The staleness recorder
-is fed by the streaming updater (``serving/updates.py``); the failure and
-scrub recorders wait for the fault and scrub layers (ROADMAP.md queue 1
-items 12-13): unused, they cost nothing and leave the summary's shape as
-the reference's.
+is fed by the streaming updater (``serving/updates.py``), the failure
+recorder by the runtime's retry policy and the scrub recorders by the
+scrubber (``serving/scrub.py``).
 """
 from __future__ import annotations
 

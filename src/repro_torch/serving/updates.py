@@ -154,7 +154,12 @@ class StreamingUpdater:
         new_table = demote_table(eng.cfg, table, counts, pages)
         binding.state = eng.migrate(state, new_table, count_decay=1.0)
         binding._sync()
-        # (the reference refreshes its integrity ledger here: item 12)
+        if binding.integrity is not None:
+            # demoted pages changed native-domain content (hot fp32 ->
+            # re-quantized codes): re-record them
+            binding.integrity.note_tier_changes(
+                binding.state, host(table.page_to_shard),
+                new_table.page_to_shard)
         self.tracker.note_requantized(pages)
         self.demoted_pages += int(pages.size)
         if binding.checkpointer is not None:

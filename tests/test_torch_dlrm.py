@@ -189,17 +189,18 @@ def test_serve_cli_dedup_scores_equal_off(dedup):
                                   ["--update-qps", "10"], ["--scrub"],
                                   ["--mesh-faults"]])
 def test_serve_cli_not_ported_flags_raise(flag):
-    """The regimes of later queue items (--scrub, --mesh-faults) raise;
-    the dynamic batcher and the streaming updates are ported and serve the
-    stream on the CPU."""
-    if flag[0] in ("--batcher", "--update-qps"):
-        out = srv.main(["--device", "cpu", "--requests", "48", *flag])
-        assert out["served"] == 48 and out["dropped"] == 0
-        assert out["steady_traces"] == 0 and out["scores_finite"]
-        assert ("updates" in out) == (flag[0] == "--update-qps")
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        srv.main(["--device", "cpu", *flag])
+    """Every regime of the reference CLI is ported and serves the stream on
+    the CPU: the dynamic batcher, the streaming updates, the scrubber
+    (--scrub) and the degraded mesh (--mesh-faults: one re-mesh); none
+    raises."""
+    out = srv.main(["--device", "cpu", "--requests", "48", *flag])
+    assert out["served"] + out["failed"] == 48 and out["dropped"] == 0
+    assert out["steady_traces"] == 0 and out["scores_finite"]
+    assert ("updates" in out) == (flag[0] == "--update-qps")
+    assert ("scrub_run" in out) == (flag[0] == "--scrub")
+    assert ("remesh" in out) == (flag[0] == "--mesh-faults")
+    if flag[0] == "--mesh-faults":
+        assert out["remeshes"] == 1
 
 
 def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):

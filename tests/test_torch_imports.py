@@ -31,7 +31,9 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         "for m in ('core.planner', 'serving.loadgen', 'serving.metrics',\n"
         "          'serving.runtime', 'core.updates', 'checkpoint.wal',\n"
         "          'checkpoint.checkpointer', 'serving.updates',\n"
-        "          'kernels.updates'):\n"
+        "          'kernels.updates', 'core.integrity', 'kernels.integrity',\n"
+        "          'serving.scrub', 'serving.faults', 'serving.degradation',\n"
+        "          'runtime.fault_tolerance', 'runtime.elastic'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -322,15 +322,17 @@ def test_partial_pool_input_contracts():
 
 def test_registry_lists_every_tpu_kernel():
     """Eight kernels for the nine TPU kernels (row 2 is row 1 with a null
-    mask) in three sources, and ``apply_deltas``, which replaces the
-    reference's jnp update (no Pallas kernel), in a fourth."""
+    mask) in three sources, and ``apply_deltas`` and ``page_checksums``,
+    which replace the reference's jnp update and checksum reduction (no
+    Pallas kernel), in a fourth and a fifth."""
     k = build.KERNELS
-    assert len(k) == 9
+    assert len(k) == 10
     assert {v.stem for v in k.values()} == {"masked_sls", "dot_interaction",
                                             "fused_front_end",
-                                            "apply_deltas"}
+                                            "apply_deltas", "page_checksums"}
     assert sum("src/repro/kernels/" in v.replaces for v in k.values()) == 8
     assert "src/repro/core/pifs.py:1232" in k["apply_deltas"].replaces
+    assert "src/repro/core/pifs.py:1394" in k["page_checksums"].replaces
     for name, line in (("fused_partial_pool", "sls.py:750"),
                        ("fused_partial_pool_dedup", "sls.py:818"),
                        ("fused_resume", "sls.py:871")):

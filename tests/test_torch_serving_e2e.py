@@ -310,7 +310,8 @@ def test_serve_offered_load_on_cpu(users):
     taken on the cadence, the observe-cadence dedup probe recorded per
     bucket, and a warmup service time per bucket; with an update stream,
     batches applied and staleness sampled at every boundary; the scrub and
-    mesh-fault regimes still raise, naming their items."""
+    mesh-fault regimes run (tests/test_torch_scrub.py and
+    tests/test_torch_elastic.py hold them to the reference)."""
     _, cfg = _cfgs()
     load = _load(loadgen, ArrivalConfig, storage="int8", front_end="fused")
     out = srv.serve_offered_load(
@@ -324,10 +325,17 @@ def test_serve_offered_load_on_cpu(users):
     assert set(out["warmup_service_ms"]) == {
         f"{b}x{l}" for b in SIZES for l in POOLINGS}
     assert out["p99.9_ms"] >= out["p99_ms"] >= out["p50_ms"] > 0
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        srv.serve_offered_load(cfg, load, device="cpu", scrub=True)
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        srv.serve_offered_load(cfg, load, device="cpu", mesh_faults=True)
+    scrubbed = srv.serve_offered_load(cfg, load, device="cpu",
+                                      batch_sizes=SIZES, scrub=True,
+                                      closed_loop_users=users)
+    assert scrubbed["served"] == N and scrubbed["steady_traces"] == 0
+    assert scrubbed["scrub_run"]["cycles"] == scrubbed["batches"]
+    assert scrubbed["scrub_run"]["pages_detected"] == 0
+    meshed = srv.serve_offered_load(cfg, load, device="cpu",
+                                    batch_sizes=SIZES, mesh_faults=True,
+                                    n_shards=4, closed_loop_users=users)
+    assert meshed["served"] + meshed["failed"] == N
+    assert meshed["remeshes"] == 1 and meshed["steady_traces"] == 0
     # streaming updates run: every generated batch due in the horizon is
     # applied, and staleness is sampled at every batch boundary
     up = srv.serve_offered_load(

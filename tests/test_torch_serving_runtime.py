@@ -257,3 +257,34 @@ def test_binding_executor_pads_its_own_batches():
         runtime.ServingRuntime(ex, bat, pad)
     with pytest.raises(ValueError, match="padder"):
         runtime.ServingRuntime(runtime.SimulatedExecutor(model), bat)
+
+
+def test_binding_executor_refuses_a_batch_without_request_ids():
+    """A batch that does not come from the executor's ``pad`` carries no
+    request ids, so its scores could not be filed: ``run_batch`` refuses
+    it before running anything; a copy of a padded batch keeps its ids."""
+    import copy
+
+    import torch
+
+    class Binding:
+        calls = 0
+
+        def execute(self, batch):
+            Binding.calls += 1
+            return torch.as_tensor(batch["x"])
+
+    def pad(reqs, bucket):
+        x = np.zeros(bucket.batch, np.float32)
+        x[:len(reqs)] = [r.rid + 1 for r in reqs]
+        return {"x": x}
+
+    ex = runtime.BindingExecutor(Binding(), pad)
+    bucket = batcher.Bucket(4, 4)
+    batch = ex.pad([_req(request, i, 0.0) for i in range(3)], bucket)
+    with pytest.raises(TypeError, match="PaddedBatch"):
+        ex.run_batch(bucket, dict(batch))
+    assert Binding.calls == 0 and ex.scores == {}
+    ex.run_batch(bucket, copy.copy(batch))
+    assert ex.scores == {0: np.float32(1), 1: np.float32(2),
+                         2: np.float32(3)}

@@ -457,6 +457,8 @@ def test_serve_cli_pond_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         srv.main(["--mode", "pond", "--requests", "4"])
-    # the elastic re-mesh on shard loss is what remains of --mesh-faults
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 13\)"):
-        srv.main(["--device", "cpu", "--mesh-faults"])
+    # --mesh-faults serves pond on 4 shards and re-meshes onto 2
+    out = srv.main(["--device", "cpu", "--mode", "pond", "--requests", "48",
+                    "--front-end", "fused", "--mesh-faults"])
+    assert out["remesh"]["to_mesh"] == {"data": 1, "model": 2}
+    assert out["served"] + out["failed"] == 48 and out["scores_finite"]
