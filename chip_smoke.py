@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE[,PHASE]]
 
 1. builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all in parallel; the gather-once kernels,
@@ -36,7 +36,12 @@
    its plain version, bitwise, fp32 and int8, D in {16, 18, 64, 128}, 1
    and 4 shards, a random hot set and none, pads, zero-scale pages, int8
    deltas at which a multiply then an add gives another code than the
-   fma, and an all-pad batch (a bitwise no-op);
+   fma, and an all-pad batch (a bitwise no-op); and masked_sls and
+   masked_sls_dedup at the recsys lookups' shape -- L = 1 bags with no
+   weights or 0/1 weights, D in {16, 32, 50} (D = 50: 200-byte fp32 and
+   50-byte int8 rows, no 16-byte path), fp32 and int8, 1 and 4 shards in
+   one launch, 21 * 512 and 26 * 512 bags -- bitwise equal to their plain
+   versions;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -148,7 +153,29 @@
    stragglers under the degradation controller (finite scores, retries,
    watchdog trips); and ``corrupt_store(mode='nan')`` -> ``scrub_scores``
    -> ``wants_restore`` -> ``restore``: scores bitwise equal to the clean
-   ones.
+   ones;
+12. recsys phase: DCN-v2, AutoInt, SASRec and BST at their published
+   widths, uncut (the Criteo vocabularies: 33.8 M rows at D = 16, 2.16 GB
+   fp32; SASRec 1 M x 50; BST 1.01 M x 32), fp32 and, for DCN-v2 and
+   SASRec, int8: ``serve_offered_load``'s path under phase 8's load
+   (Poisson 200 qps, 48 Criteo or 512 sequence requests, drawn once per
+   arch in spawned processes and timed; one ``recsys`` JSON line per run:
+   p50 / p99 / p99.9, served, ``steady_traces`` 0), launch counts zeroed
+   just before each run and read just after (``masked_sls`` must have
+   run), DCN-v2 also pond at one shard and pifs at 4; at batch 512 drawn
+   on the card (zipf by inverse transform, no permutation) the kernel
+   path's lookups bitwise equal to the plain path's, scores within 1e-5
+   and dedup on == off bitwise, the serve step timed with its device busy
+   share (DCN-v2 fp32 also pond and 4 shards: lookups bitwise equal to one
+   shard's), and the cold-tier ``masked_sls`` / ``masked_sls_dedup`` of
+   the step's first lookup timed beside the plain versions and bounds
+   (SASRec: the D = 50 row); SASRec's ``make_retrieval_step`` over
+   1,000,000 candidates (finite, within 1e-5 of the plain path, timed);
+   and a pinned SASRec pair, dedup off and on: one flush trace, scores
+   bitwise equal, ``masked_sls_dedup`` launched.
+
+``--only`` runs the build and the named phases alone, for a quicker look,
+and prints neither of the last two lines.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -169,7 +196,9 @@ dots agree within 2 * D * 2^-23 * sum_d |x_i[d] * x_j[d]|.  Serve scores
 """
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -513,11 +542,13 @@ def kernel_phase(gen: torch.Generator) -> None:
     n_dedup = dedup_kernel_checks(gen)
     n_tp = partial_pool_kernel_checks(gen)
     n_upd = apply_deltas_checks(gen)
+    n_rec = recsys_kernel_checks(gen)
     torch.cuda.synchronize()
     print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_edge} "
           f"per-entry edge cases + {n_dot} interaction cases + {n_dedup} "
           f"gather-once cases + {n_tp} partial-pool/resume cases + {n_upd} "
-          f"apply_deltas cases passed; launches "
+          f"apply_deltas cases + {n_rec} recsys L = 1 cases passed; "
+          f"launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
           flush=True)
 
@@ -2985,7 +3016,412 @@ def faults_phase() -> tuple:
     return lines, checks, launches
 
 
-def main() -> None:
+# ----------------------------------------------------------- recsys phase
+REC_ARCHS = ("dcn-v2", "autoint", "sasrec", "bst")
+REC_INT8 = ("dcn-v2", "sasrec")
+# requests per runtime run: a Criteo request permutes five 2-10 M id
+# vocabularies (~1.35 s of host time each), a sequence one 1 M catalogue
+REC_N = {"dcn-v2": 48, "autoint": 48, "sasrec": 512, "bst": 512}
+ZIPF_ALPHA = 1.05
+
+
+def zipf_ids_on_card(vocab: int, shape, gen: torch.Generator
+                     ) -> torch.Tensor:
+    """Bounded zipf ids (alpha 1.05) by ``_zipf_ids``' inverse transform,
+    drawn on the card from ``gen``, without its permutation of the
+    vocabulary: the most popular ids are the lowest."""
+    u = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)
+    a = 1.0 - ZIPF_ALPHA
+    ids = torch.floor(((vocab ** a - 1.0) * u + 1.0) ** (1.0 / a)) - 1.0
+    return ids.clamp_(0, vocab - 1).to(torch.int32)
+
+
+def rec_batch(cfg, B: int, gen: torch.Generator) -> dict:
+    """A batch of ``B`` recsys requests drawn on the card."""
+    if cfg.interaction in ("self-attn-seq", "transformer-seq"):
+        V = cfg.vocab_sizes[0]
+        out = {"seq": zipf_ids_on_card(V, (B, cfg.seq_len), gen),
+               "target": zipf_ids_on_card(V, (B,), gen)}
+    else:
+        out = {"fields": torch.stack(
+            [zipf_ids_on_card(v, (B,), gen) for v in cfg.vocab_sizes], 1)}
+    if cfg.n_dense:
+        out["dense"] = torch.randn((B, cfg.n_dense), generator=gen,
+                                   device="cuda")
+    return out
+
+
+def rec_lookup_ids(cfg, offs, batch) -> list:
+    """The engine-global (B, G, 1) ids of every lookup the arch's forward
+    makes."""
+    if "fields" in batch:
+        o = torch.as_tensor(np.asarray(offs, np.int32), device="cuda")
+        return [(batch["fields"] + o)[..., None]]
+    if cfg.interaction == "transformer-seq":
+        return [torch.cat([batch["seq"], batch["target"][:, None]],
+                          1)[..., None]]
+    return [batch["seq"][..., None], batch["target"][:, None, None]]
+
+
+def recsys_kernel_checks(gen: torch.Generator) -> int:
+    """``masked_sls`` and ``masked_sls_dedup`` at the recsys lookups' shape:
+    L = 1 bags (one row each, no weights or 0/1 weights), D in {16, 32,
+    50} (64-, 128- and 200-byte fp32 rows; 16-, 32- and 50-byte int8
+    rows), 1 and 4 shards pooled in one launch as the engine's split path
+    stacks them, G * B = 21 * 512 and 26 * 512 bags of skewed ids (a
+    quarter owned by no shard): bitwise equal to their plain versions, and
+    the gather-once kernel to the per-entry one."""
+    from repro_torch.core import sls as core_sls
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n_cases, R = 0, 40_000               # rows per shard
+    for D in (16, 32, 50):
+        for storage in ("fp32", "int8"):
+            for S in (1, 4):
+                if storage == "int8":
+                    table = torch.randint(-127, 128, (S * R, D),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int8)
+                else:
+                    table = torch.randn((S * R, D), generator=gen,
+                                        device="cuda")
+                row_scale = rand((S * R,), 1e-4, 2e-2)
+                for G in (21, 26):
+                    N = G * 512
+                    loc = (rand((N, 1)) ** 4 * R).to(torch.int32)
+                    shard = torch.randint(0, S + 1, (N, 1), generator=gen,
+                                          device="cuda")   # S: not owned
+                    owned = shard[None] == torch.arange(
+                        S, device="cuda").view(S, 1, 1)
+                    # one scale per stored row, as the pages give them
+                    scales = (row_scale[shard.clamp(max=S - 1) * R + loc]
+                              if storage == "int8" else None)
+                    for w in (None, (rand((N, 1)) < 0.8).float()):
+                        tag = (f"L=1 D={D} {storage} S={S} G={G} B=512 "
+                               f"w={'none' if w is None else '01'}")
+                        outs = {}
+                        for dedup in (False, True):
+                            k = core_sls.masked_partial_sls_dense(
+                                table, loc, owned, w, impl="cuda",
+                                scales=scales, dedup=dedup)
+                            p = core_sls.masked_partial_sls_dense(
+                                table, loc, owned, w, impl="torch",
+                                scales=scales, dedup=dedup)
+                            name = "masked_sls_dedup" if dedup \
+                                else "masked_sls"
+                            assert_equal(k, p, f"{name} {tag}")
+                            outs[dedup] = k
+                        assert_equal(outs[True], outs[False],
+                                     f"masked_sls_dedup == masked_sls {tag}")
+                        n_cases += 1
+    return n_cases
+
+
+def rec_runtime_run(cfg, reqs, storage="fp32", mode="pifs", n_shards=1,
+                    dedup="off", pin=False) -> dict:
+    """One ``run_offered_load`` of a recsys config on the card (phase 8's
+    load: Poisson 200 qps, SLO 50 ms, buckets of batch 8, 16 and 32,
+    observe every 4 batches -- a no-op without an index key -- and re-plan
+    every 64) over the stream ``reqs``, drawn once per arch; measured
+    service times, or with ``pin`` the pinned ``FixedServiceModel``.
+    Checks the run's counts and scores; returns its line, the scores by
+    rid, the flush trace and the binding."""
+    from repro_torch.core.paging import HOT_SHARD
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving.batcher import FixedServiceModel
+    from repro_torch.serving.loadgen import LoadConfig
+    from repro_torch.serving.request import ArrivalConfig
+
+    n = len(reqs)
+    load = LoadConfig(n, ArrivalConfig(RT_QPS, seed=0), slo_ms=RT_SLO_MS,
+                      seed=0, storage=storage, dedup=dedup)
+    t0 = time.perf_counter()
+    rt, b = srv.build_serving(
+        cfg, "cuda", mode=mode, batch_sizes=RT_SIZES, slo_ms=RT_SLO_MS,
+        storage=storage, dedup=dedup, n_shards=n_shards,
+        service=FixedServiceModel(**RT_PIN) if pin else None)
+    s = srv.run_offered_load(rt, b, cfg, load, requests=reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tag = (f"recsys {cfg.name} {storage} {mode} S={n_shards} dedup={dedup} "
+           f"pin={pin}")
+    check(s["served"] == n and s["dropped"] == s["failed"] == 0,
+          f"{tag}: served {s['served']} of {n}, dropped {s['dropped']}, "
+          f"failed {s['failed']}")
+    check(s["steady_traces"] == 0,
+          f"{tag}: {s['steady_traces']} signatures new after warmup")
+    scores = np.asarray([rt.executor.scores[i] for i in range(n)],
+                        np.float32)
+    check(bool(np.isfinite(scores).all() and (scores > 0).all()
+               and (scores < 1).all()), f"{tag}: scores not finite in (0, 1)")
+    line = {"arch": cfg.name, "storage": storage, "mode": mode,
+            "n_shards": n_shards, "dedup": dedup, "offered_qps": RT_QPS,
+            "requests": n, "pinned": pin,
+            **{k: s[k] for k in ("served", "batches", "p50_ms", "p99_ms",
+                                 "p99.9_ms", "qps", "slo_violation_rate",
+                                 "batch_occupancy_mean", "bucket_mix",
+                                 "replans", "steady_traces",
+                                 "warmup_service_ms")},
+            "hot_pages": int((b.state.page_to_shard == HOT_SHARD).sum()),
+            "wall_s": wall}
+    trace = [(r.t, r.bucket.batch, r.bucket.pooling, r.n_real)
+             for r in rt.metrics.batches]
+    return {"line": line, "scores": scores, "trace": trace, "binding": b}
+
+
+def rec_kernel_rows(cfg, storage, b, ids, timer: Timer) -> list:
+    """``masked_sls`` and ``masked_sls_dedup`` on the cold tier at the
+    first lookup of the batch-512 serve step (L = 1, no weights), timed
+    (CUDA events, L2 flushed) beside their plain versions, their bounds
+    from this run's inputs and, fp32, ``F.embedding_bag``."""
+    from repro_torch.core import sls as core_sls
+    from repro_torch.kernels import ops
+
+    eng, st = b.engine, b.state
+    B, G, L = ids.shape
+    loc, owned, _, scale = eng._address(st, ids.reshape(B * G, L))
+    own = owned[0]
+    cold = st.cold
+    D = cold.shape[1]
+    plan = core_sls.dedup_plan(loc, own, scale)
+    dd = dedup_cost(cold, plan)
+    n_e = loc.numel()
+    calls = {
+        "masked_sls/cold": (
+            lambda: ops.masked_sls(cold, loc, own, None, scale),
+            lambda: ops.masked_sls(cold, loc, own, None, scale,
+                                   impl="torch"),
+            sls_cost(cold, loc, own, None, scale)),
+        "masked_sls_dedup/cold": (
+            lambda: ops.masked_sls_dedup(cold, plan, own, None),
+            lambda: ops.masked_sls_dedup(cold, plan, own, None,
+                                         impl="torch"),
+            bound(dd["nbytes"] + n_e * 5 + B * G * D * 4,
+                  n_e * D + dd["dequant_flops"])),
+    }
+    lib = None
+    if storage == "fp32":
+        safe = torch.where(own, loc, torch.zeros_like(loc))
+        fw = own.float()
+        lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            safe, cold, mode="sum", per_sample_weights=fw)
+    rows, outs = [], {}
+    for name, (kfn, pfn, cost) in calls.items():
+        kout, pout = kfn(), pfn()
+        what = f"{name} {cfg.name} {storage} batch {B}"
+        assert_equal(kout, pout, what)
+        outs[name] = kout
+        rows.append({"name": name, "arch": cfg.name, "storage": storage,
+                     "batch": B, "bags": B * G, "L": L, "dim": D,
+                     "n_shards": 1, "ms": timer(kfn), "plain_ms": timer(pfn),
+                     "library_ms": None if lib is None else timer(lib),
+                     "max_abs_err": 0.0, "owned": int(own.sum()), **cost})
+    assert_equal(outs["masked_sls_dedup/cold"], outs["masked_sls/cold"],
+                 f"masked_sls_dedup == masked_sls {cfg.name} {storage}")
+    return rows
+
+
+def rec_step_checks(cfg, storage, b, offs, gen, timer: Timer) -> tuple:
+    """At batch 512 (``REC_SHAPES['serve_p99']``) drawn on the card: every
+    lookup of the forward, kernel path == plain path bitwise; scores
+    within 1e-5 of the plain path's, finite in (0, 1); the serve step
+    timed (median of 20, host clock to a synchronize) with its device
+    busy share; at DCN-v2 fp32 also pond (1 shard) and pifs at 4 shards
+    (``remesh_engine`` of the same store): lookups bitwise equal to pifs
+    at one shard, scores within 1e-5.  Returns the step lines and the
+    kernel timing rows."""
+    from repro_torch.configs import REC_SHAPES
+    from repro_torch.models import recsys as rec
+    from repro_torch.runtime.elastic import remesh_engine
+
+    B = REC_SHAPES["serve_p99"].batch
+    batch = rec_batch(cfg, B, gen)
+    eng, st, model = b.engine, b.state, b.model
+    tag = f"recsys {cfg.name} {storage} batch {B}"
+    ids = rec_lookup_ids(cfg, offs, batch)
+    kl = [eng.lookup(st, i) for i in ids]
+    for k, i in zip(kl, ids):
+        assert_equal(k, eng.lookup(st, i, impl="torch"),
+                     f"{tag}: lookup kernel vs plain")
+    step = rec.make_serve_step(model, eng, offs)
+    got = step(st, batch)
+    want = rec.make_serve_step(model, eng, offs, impl="torch")(st, batch)
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"{tag}: scores kernel vs plain differ by {err:.3e}")
+    check(bool(torch.isfinite(got).all() and (got > 0).all()
+               and (got < 1).all()), f"{tag}: scores not finite in (0, 1)")
+    on = rec.make_serve_step(model, eng, offs, dedup="on")(st, batch)
+    assert_equal(on, got, f"{tag}: dedup on vs off")
+    steps = [{"arch": cfg.name, "storage": storage, "n_shards": 1,
+              "mode": "pifs", "batch": B, "score_err": err,
+              **step_time(step, st, batch)}]
+    rows = rec_kernel_rows(cfg, storage, b, ids[0], timer)
+    if cfg.name == "dcn-v2" and storage == "fp32":
+        pond = rec.make_serve_step(model, eng, offs, mode="pond")
+        for i, k in zip(ids, kl):
+            assert_equal(eng.lookup(st, i, mode="pond"), k,
+                         f"{tag}: pond vs pifs lookup")
+        e = float((pond(st, batch) - got).abs().max())
+        check(e <= 1e-5, f"{tag}: pond vs pifs scores differ by {e:.3e}")
+        steps.append({"arch": cfg.name, "storage": storage, "n_shards": 1,
+                      "mode": "pond", "batch": B, "score_err": e,
+                      **step_time(pond, st, batch)})
+        eng4, st4 = remesh_engine(eng, TP, st)
+        for i, k in zip(ids, kl):
+            assert_equal(eng4.lookup(st4, i), k,
+                         f"{tag}: {TP} shards vs one, lookup")
+        step4 = rec.make_serve_step(model, eng4, offs)
+        e = float((step4(st4, batch) - got).abs().max())
+        check(e <= 1e-5, f"{tag}: {TP} shards vs one, scores {e:.3e}")
+        steps.append({"arch": cfg.name, "storage": storage, "n_shards": TP,
+                      "mode": "pifs", "batch": B, "score_err": e,
+                      **step_time(step4, st4, batch)})
+        del eng4, st4
+    return steps, rows
+
+
+def rec_retrieval(cfg, storage, b, offs, gen) -> dict:
+    """``make_retrieval_step`` at ``REC_SHAPES['retrieval_cand']``: one
+    history against 1,000,000 candidates drawn on the card; scores finite
+    of that shape, within 1e-5 of the plain path's; median of 10 (host
+    clock to a synchronize)."""
+    from repro_torch.configs import REC_SHAPES
+    from repro_torch.models import recsys as rec
+
+    n = REC_SHAPES["retrieval_cand"].n_candidates
+    q = {"seq": zipf_ids_on_card(cfg.vocab_sizes[0], (1, cfg.seq_len), gen),
+         "cand_ids": torch.randint(0, cfg.vocab_sizes[0], (n,),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)}
+    step = rec.make_retrieval_step(b.model, b.engine, offs)
+    got = step(b.state, q)
+    want = rec.make_retrieval_step(b.model, b.engine, offs,
+                                   impl="torch")(b.state, q)
+    tag = f"retrieval {cfg.name} {storage} {n} candidates"
+    check(tuple(got.shape) == (n,) and bool(torch.isfinite(got).all()),
+          f"{tag}: shape {tuple(got.shape)} or non-finite scores")
+    err = float((got - want).abs().max())
+    check(err <= 1e-5 * (1 + float(want.abs().max())),
+          f"{tag}: kernel vs plain differ by {err:.3e}")
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(10):
+        t = time.perf_counter()
+        step(b.state, q)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return {"arch": cfg.name, "storage": storage, "candidates": n,
+            "ms": statistics.median(ts), "score_err": err,
+            "bitwise": bool(torch.equal(got, want))}
+
+
+def recsys_phase(gen: torch.Generator) -> tuple:
+    """Phase 12: the recsys family at its published widths, uncut (DCN-v2
+    and AutoInt over the 26 Criteo vocabularies, 33.8 M rows at D = 16;
+    SASRec 1 M x 50; BST 1 M + 10 k x 32): fp32, and int8 for DCN-v2 and
+    SASRec.  Per (arch, storage): ``serve_offered_load``'s path under phase
+    8's load (launch counts zeroed just before and read just after:
+    ``masked_sls`` must have run), at DCN-v2 fp32 also pond and 4 shards;
+    then :func:`rec_step_checks`, the cold-tier kernels timed at the batch-
+    512 lookup (:func:`rec_kernel_rows`), SASRec's retrieval over 1 M
+    candidates; and a pinned SASRec pair whose ``dedup='on'`` run launches
+    ``masked_sls_dedup`` and serves scores bitwise equal to off."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import recsys as rec
+    from repro_torch.serving.loadgen import LoadConfig, request_stream
+    from repro_torch.serving.request import ArrivalConfig
+
+    t0 = time.perf_counter()
+    timer = Timer()
+    workers = max(1, min(8, len(os.sched_getaffinity(0))))
+    lines, steps, rows, retrieval = [], [], [], []
+    launches = {k: 0 for k in build.KERNELS}
+
+    def measured(cfg, reqs, **kw):
+        build.reset_launches()
+        r = rec_runtime_run(cfg, reqs, **kw)
+        for k, v in build.KERNELS.items():
+            launches[k] += v.launches
+        lines.append(r["line"])
+        print("recsys " + json.dumps(r["line"]), flush=True)
+        return r
+
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        t = time.perf_counter()
+        reqs = request_stream(cfg, LoadConfig(
+            REC_N[arch], ArrivalConfig(RT_QPS, seed=0), slo_ms=RT_SLO_MS,
+            seed=0), workers=workers)
+        print(f"recsys {arch}: generated {len(reqs)} requests in "
+              f"{time.perf_counter() - t:.3f} s ({workers} processes)",
+              flush=True)
+        for storage in ("fp32", "int8") if arch in REC_INT8 else ("fp32",):
+            r = measured(cfg, reqs, storage=storage)
+            b = r["binding"]
+            _, offs = rec.build_engine(cfg, "cuda", storage=storage)
+            s, k = rec_step_checks(cfg, storage, b, offs, gen, timer)
+            steps += s
+            rows += k
+            if cfg.interaction == "self-attn-seq":
+                retrieval.append(rec_retrieval(cfg, storage, b, offs, gen))
+                print("retrieval " + json.dumps(retrieval[-1]), flush=True)
+            del r, b
+            torch.cuda.empty_cache()
+            if arch == "dcn-v2" and storage == "fp32":
+                for kw in ({"mode": "pond"}, {"n_shards": TP}):
+                    measured(cfg, reqs, storage=storage, **kw)
+                    torch.cuda.empty_cache()
+        if arch == "sasrec":
+            pin = {}
+            for d in ("off", "on"):
+                build.reset_launches()
+                pin[d] = rec_runtime_run(cfg, reqs, dedup=d, pin=True)
+                pin[d]["launches"] = {k: v.launches
+                                      for k, v in build.KERNELS.items()}
+                del pin[d]["binding"]
+                torch.cuda.empty_cache()
+            check(pin["on"]["trace"] == pin["off"]["trace"],
+                  "recsys sasrec: dedup on vs off flush traces differ")
+            assert_equal(torch.from_numpy(pin["on"]["scores"]),
+                         torch.from_numpy(pin["off"]["scores"]),
+                         "recsys sasrec: dedup on vs off scores")
+            dedup_launches = pin["on"]["launches"]["masked_sls_dedup"]
+            check(dedup_launches > 0,
+                  "recsys phase: masked_sls_dedup not launched under dedup on")
+            print(f"recsys sasrec: pinned dedup on == off bitwise "
+                  f"({len(pin['on']['trace'])} batches); masked_sls_dedup "
+                  f"launched {dedup_launches} times", flush=True)
+        del reqs
+    del timer
+    torch.cuda.empty_cache()
+    check(launches["masked_sls"] > 0,
+          "recsys phase: kernel masked_sls not launched")
+    for s in steps:
+        print("recsys_step " + json.dumps(s), flush=True)
+    print(f"recsys phase: {len(lines)} measured runs in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return lines, steps, rows, launches, dedup_launches
+
+
+PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
+          "recsys")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="", metavar="PHASE[,PHASE]",
+                    help="run only these phases (of " + ", ".join(PHASES)
+                         + ") after the build, for a quicker look; such a "
+                           "run prints no kernels or result line")
+    args = ap.parse_args(argv)
+    only = [p for p in args.only.split(",") if p]
+    for p in only:
+        if p not in PHASES:
+            ap.error(f"unknown phase {p!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU",
               file=sys.stderr)
@@ -3014,6 +3450,20 @@ def main() -> None:
         flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    if only:
+        run = {"kernel": lambda: kernel_phase(gen),
+               "slice": lambda: slice_phase(Timer()),
+               "runtime": runtime_phase,
+               "updates": lambda: updates_phase(gen),
+               "integrity": lambda: integrity_phase(gen),
+               "faults": faults_phase,
+               "recsys": lambda: recsys_phase(gen)}
+        for p in only:
+            run[p]()
+            torch.cuda.empty_cache()
+        print(f"total {time.perf_counter() - t_start:.1f} s; partial run "
+              f"({','.join(only)}): no result line", flush=True)
+        return
     kernel_phase(gen)
     timer = Timer()
     launches, details, steps, dedup_lines, maint = slice_phase(timer)
@@ -3025,6 +3475,9 @@ def main() -> None:
     integ_rows, _, integ_launches = integrity_phase(gen)
     details += integ_rows
     _, _, fault_launches = faults_phase()
+    torch.cuda.empty_cache()
+    _, _, rec_rows, rec_launches, rec_dedup_launches = recsys_phase(gen)
+    details += rec_rows
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
@@ -3077,13 +3530,26 @@ def main() -> None:
                  and x["arch"] == "rmc4" and x["storage"] == "fp32"
                  and x["batch"] == 2048
                  and x.get("n_shards", 1) == (TP if path == "tp" else 1))
+        rec_extra = {}
+        if k.name in ("masked_sls", "masked_sls_dedup"):
+            # phase 12: its runtime runs' launches (masked_sls) or the
+            # dedup-on run's, and the SASRec D = 50 cold-tier lookup
+            d50 = next(x for x in rec_rows if x["name"] == row
+                       and x["arch"] == "sasrec" and x["storage"] == "fp32")
+            rec_extra = {
+                "recsys_launches": (rec_launches[k.name]
+                                    if k.name == "masked_sls"
+                                    else rec_dedup_launches),
+                "recsys_d50": {key: d50[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "bags", "dim")}}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[path][k.name],
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-            "runtime_launches": rt_launches[k.name],
+            "runtime_launches": rt_launches[k.name], **rec_extra,
             "shape": f"rmc4 fp32 batch 2048 ({row}, "
                      f"{d.get('n_shards', 1)} shard(s))"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

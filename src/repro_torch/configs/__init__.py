@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    DLRMConfig, get_config, reduced, register,
+    Config, DLRMConfig, REC_SHAPES, RecConfig, RecShape, get_config,
+    list_archs, reduced, reduced_shape, register,
 )

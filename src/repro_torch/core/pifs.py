@@ -938,18 +938,21 @@ class ServeBinding:
         across it in :meth:`plan_stats`.
 
     ``impl`` is the route of the update and checksum kernels, as the
-    steps' is of the lookups."""
-
-    idx_key = "indices"                    # batch entry feeding the profiler
+    steps' is of the lookups.  ``idx_key`` names the batch entry of
+    engine-global row ids that feeds the profiler and the id check; a
+    family whose batches hold table-local ids (the recsys models) binds
+    ``None``: :meth:`observe` is then a no-op and ``validate_ids`` checks
+    nothing, as in the reference."""
 
     def __init__(self, engine: PIFSEmbeddingEngine, state: EngineState,
                  model, step, steps: Optional[dict] = None,
                  validate_ids: bool = False, scrub_scores: bool = False,
-                 impl: str = "cuda"):
+                 impl: str = "cuda", idx_key: Optional[str] = "indices"):
         self.engine = engine
         self.state = state
         self.model = model
         self.impl = impl
+        self.idx_key = idx_key             # batch entry feeding the profiler
         self.replans = 0
         # per-bucket duplicate-access accounting, fed by observe() on the
         # maintenance path (never the timed service path): bucket index
@@ -1011,7 +1014,7 @@ class ServeBinding:
         and wait for the card, so the caller's wall clock around this call
         is the batch's service time.  Returns the (B,) scores on the
         device, non-finite ones zeroed under ``scrub_scores``."""
-        if self.validate_ids:
+        if self.validate_ids and self.idx_key and self.idx_key in batch:
             self.engine._check_ids(batch[self.idx_key])
         tb = {k: self._on_device(v) for k, v in batch.items()}
         out = self.steps[self.active](self.state, tb)
@@ -1031,7 +1034,10 @@ class ServeBinding:
         """Add a served batch to the page histogram (pad entries, weight 0,
         do not count) and its measured duplicate factor to the per-bucket
         record.  Waits for the card, so the update is charged to
-        maintenance, not to the next batch's service time."""
+        maintenance, not to the next batch's service time.  A no-op
+        without ``idx_key`` in the batch."""
+        if not (self.idx_key and self.idx_key in batch):
+            return
         idx, w = batch[self.idx_key], batch.get("weights")
         self.state = self.engine.observe(
             self.state, self._on_device(idx),

@@ -1,7 +1,9 @@
-"""Serving entry point: online DLRM inference through ``repro_torch.serving``.
+"""Serving entry point: online DLRM and recsys inference through
+``repro_torch.serving``.
 
 ``python -m repro_torch.launch.serve --arch rmc4 --full --qps 200
---slo-ms 50``
+--slo-ms 50``; ``--arch`` also takes the recsys ids ``sasrec``, ``bst``,
+``autoint`` and ``dcn-v2`` (their requests are L = 1 bags, pooling 1).
 
 The port of ``repro.launch.serve``: binds the model to a ``ServeBinding``
 (``core/pifs.py``) on the card (``--device cpu`` for the CPU), generates
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.checkpoint.wal import WriteAheadLog
-from repro_torch.configs import DLRMConfig, get_config, reduced
+from repro_torch.configs import Config, get_config, list_archs, reduced
 from repro_torch.core.pifs import ServeBinding
 from repro_torch.core.updates import UpdateConfig
 from repro_torch.device import DeviceLike
@@ -64,7 +66,7 @@ from repro_torch.serving.updates import StreamingUpdater
 MESH_FAULT_SHARDS = 4   # the reference CLI's model axis, min(4, devices)
 
 
-def build_serving(cfg: DLRMConfig, device: DeviceLike = None, *,
+def build_serving(cfg: Config, device: DeviceLike = None, *,
                   mode: str = "pifs", impl: str = "cuda",
                   batcher: str = "dynamic",
                   batch_sizes: Tuple[int, ...] = (8, 16, 32),
@@ -92,7 +94,8 @@ def build_serving(cfg: DLRMConfig, device: DeviceLike = None, *,
                          validate_ids=validate_ids, n_shards=n_shards,
                          degraded_variants=elastic, scrub_scores=elastic,
                          elastic=elastic, prefer_tp=prefer_tp)
-    levels = tuple(sorted(set(poolings))) or (cfg.pooling,)
+    levels = tuple(sorted(set(poolings))) or (
+        (cfg.pooling,) if hasattr(cfg, "pooling") else (1,))
     if batcher == "dynamic":
         b = DynamicBatcher(BatcherConfig(
             batch_sizes=tuple(sorted(batch_sizes)), poolings=levels,
@@ -107,13 +110,14 @@ def build_serving(cfg: DLRMConfig, device: DeviceLike = None, *,
     return runtime, binding
 
 
-def make_updater(binding: ServeBinding, cfg: DLRMConfig, load: LoadConfig,
+def make_updater(binding: ServeBinding, cfg: Config, load: LoadConfig,
                  update_cfg: Optional[UpdateConfig] = None,
                  wal_path: Optional[str] = None
                  ) -> Optional[StreamingUpdater]:
     """The ``StreamingUpdater`` of ``load``'s update stream (none when
     ``load.update_qps`` is 0), logging to a WAL at ``wal_path`` if one is
-    given."""
+    given.  A recsys config with ``update_qps > 0`` raises ``TypeError``
+    (``update_stream``)."""
     if load.update_qps <= 0:
         return None
     return StreamingUpdater(
@@ -136,12 +140,13 @@ def arm_mesh_faults(runtime: ServingRuntime, binding: ServeBinding) -> None:
 
 
 def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
-                     cfg: DLRMConfig, load: LoadConfig,
+                     cfg: Config, load: LoadConfig,
                      closed_loop_users: int = 0,
                      updater: Optional[StreamingUpdater] = None,
                      scrub: Optional[ScrubConfig] = None,
                      scrub_dir: Optional[str] = None,
-                     faults: Optional[FaultConfig] = None
+                     faults: Optional[FaultConfig] = None,
+                     requests: Optional[Sequence[Request]] = None
                      ) -> Dict[str, object]:
     """Warm every bucket, serve the stream, and report the runtime's
     summary plus the steady-state signature count (``steady_traces``,
@@ -157,7 +162,10 @@ def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
     (warmed), reporting under ``scrub_run``.  ``faults`` wraps the
     executor in a ``FaultInjectingExecutor`` after every warmup, so the
     schedule indexes live attempts only; the summary then carries
-    ``remeshes`` and ``faults_fired``."""
+    ``remeshes`` and ``faults_fired``.  ``requests`` (this port only) is
+    the open-loop stream when the caller has drawn it already
+    (``request_stream(cfg, load)``), so two runs of one load share one
+    draw."""
     dummies = dummy_request_factory(cfg, storage=load.storage)
     if runtime.controller is not None:
         # the controller may switch rungs mid-run: warm each over every
@@ -172,8 +180,9 @@ def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
         warm = runtime.warmup(dummies)
     # the open-loop stream is only materialised when something uses it
     # (the serving source, or the 'auto' priming prefix)
-    reqs = (request_stream(cfg, load)
-            if load.dedup == "auto" or closed_loop_users <= 0 else None)
+    reqs = requests
+    if reqs is None and (load.dedup == "auto" or closed_loop_users <= 0):
+        reqs = request_stream(cfg, load)
     if load.dedup == "auto" and prime_dedup_auto(binding, reqs):
         # 'auto' resolves at a signature's first lookup: prime the profiler
         # with a prefix of the live stream, then resolve the buckets again
@@ -225,7 +234,7 @@ def run_offered_load(runtime: ServingRuntime, binding: ServeBinding,
     return summary
 
 
-def serve_offered_load(cfg: DLRMConfig, load: LoadConfig, *,
+def serve_offered_load(cfg: Config, load: LoadConfig, *,
                        device: DeviceLike = None, mode: str = "pifs",
                        impl: str = "cuda", batcher: str = "dynamic",
                        batch_sizes: Tuple[int, ...] = (8, 16, 32),
@@ -278,7 +287,7 @@ def serve_offered_load(cfg: DLRMConfig, load: LoadConfig, *,
                   scrub_pages_per_cycle=scrub_pages_per_cycle)[0]
 
 
-def _serve(cfg: DLRMConfig, load: LoadConfig, *, device, mode, impl,
+def _serve(cfg: Config, load: LoadConfig, *, device, mode, impl,
            batcher, batch_sizes, hot_fraction, runtime_cfg,
            closed_loop_users, validate_ids, n_shards, update_cfg, wal_path,
            mesh_faults, prefer_tp, fault_seed, scrub, scrub_pages_per_cycle
@@ -358,7 +367,9 @@ def serve(binding: ServeBinding, step, requests: Sequence[Request],
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="rmc1")
+    ap.add_argument("--arch", default="rmc1",
+                    help="registry id: rmc1-4 or "
+                         + ", ".join(list_archs()))
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced "
                          "config of CPU smoke tests)")

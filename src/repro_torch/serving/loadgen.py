@@ -1,31 +1,39 @@
 """Load generation and model-binding glue for the serving runtime.
 
-The DLRM half of ``repro.serving.loadgen``: it builds the
-``ServeBinding`` (engine + model + serve steps) for a config on one
-device, provides the request -> bucket padder, fabricates warmup dummies,
-and turns the trace distributions (``repro_torch.data.traces``) into
-per-request open-loop or closed-loop streams with SLO deadlines attached,
-and the trainer-side delta stream (:func:`update_stream`) -- the
-reference's streams, bit for bit.
+The port of ``repro.serving.loadgen``, the only serving module that knows
+model families: it builds the ``ServeBinding`` (engine + model + serve
+steps) for a DLRM or recsys config on one device, provides the request ->
+bucket padder, fabricates warmup dummies, and turns the trace
+distributions (``repro_torch.data.traces``, ``repro_torch.data.synth``)
+into per-request open-loop or closed-loop streams with SLO deadlines
+attached, and the trainer-side delta stream (:func:`update_stream`) --
+the reference's streams, bit for bit.
 
-Request features are host numpy, one example each: ``dense (n_dense,)``
-and ``indices (T, L_r)`` (global row ids, variable per-request pooling
-``L_r``).  The Rec-family padders and factories come with ``ROADMAP.md``
-queue 1 item 14.
+Request features are host numpy, one example each:
+
+  * DLRM:            ``dense (n_dense,)``, ``indices (T, L_r)`` (global
+                     row ids, variable per-request pooling ``L_r``)
+  * field recsys:    ``fields (F,)`` (+ ``dense`` when the config has it)
+  * sequence recsys: ``seq (S,)``, ``target ()`` (+ ``dense`` for BST)
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import Config, DLRMConfig, RecConfig
 from repro_torch.core.pifs import ServeBinding
+from repro_torch.data.synth import _zipf_ids
 from repro_torch.data.traces import TraceConfig, TraceGenerator
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import dlrm as dlrm_mod
+from repro_torch.models import recsys as rec_mod
 from repro_torch.models.params import initialize
 from repro_torch.serving.batcher import (Bucket, pad_pooled_indices,
                                          stack_feature)
@@ -33,17 +41,18 @@ from repro_torch.serving.request import ArrivalConfig, Request, arrival_times
 from repro_torch.serving.updates import UpdateBatch
 
 _DENSE_TAG = 0xD0
+_FIELD_TAG = 0xF1
 _DELTA_TAG = 0xDE17A
 
 
 @dataclasses.dataclass(frozen=True)
 class LoadConfig:
     """One offered-load experiment: how many requests, arriving how, with
-    what SLO budget and per-request pooling mix."""
+    what SLO budget and (DLRM) per-request pooling mix."""
     n_requests: int
     arrival: ArrivalConfig
     slo_ms: float = 50.0
-    poolings: Tuple[int, ...] = ()       # pooling choices; () = fixed
+    poolings: Tuple[int, ...] = ()       # DLRM pooling choices; () = fixed
     distribution: str = "zipfian"
     drift_every: int = 256               # serve-stream hot-set churn period
     seed: int = 0
@@ -51,7 +60,7 @@ class LoadConfig:
     #                                      offsets depend on its page size
     dedup: str = "off"                   # gather-once duplicate coalescing
     #                                      (off/auto/on; bit-exact either way)
-    front_end: str = "split"             # lookup -> interaction pipeline:
+    front_end: str = "split"             # DLRM lookup -> interaction:
     #                                      'fused' resolves the single-kernel
     #                                      front end, or 'fused_tp' (partial
     #                                      pool -> shard sum -> resume) at
@@ -97,7 +106,26 @@ def _dlrm_steps(model, engine, *, mode, impl, dedup, front_end,
     return step, steps
 
 
-def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
+def _rec_steps(model, engine, offs, *, mode, impl, dedup,
+               degraded_variants):
+    """The recsys analogue of :func:`_dlrm_steps` (``offs`` are the
+    tables' page-rounded offsets, a function of the storage and not of the
+    shard count, so they carry verbatim across a re-mesh).  Rec configs
+    have no DLRM front end or tiers knob: ``split_fe`` aliases the full
+    step and ``hot_only`` / ``shed`` alias ``no_dedup``."""
+    def rec_step(d):
+        return rec_mod.make_serve_step(model, engine, offs, mode=mode,
+                                       impl=impl, dedup=d)
+    step = rec_step(dedup)
+    steps = None
+    if degraded_variants:
+        no_dedup = rec_step("off")
+        steps = {"split_fe": step, "no_dedup": no_dedup,
+                 "hot_only": no_dedup, "shed": no_dedup}
+    return step, steps
+
+
+def bind_model(cfg: Config, device: DeviceLike = None,
                mode: str = "pifs", impl: str = "cuda",
                hot_fraction: float = 0.05, seed: int = 0,
                storage: str = "fp32", dedup: str = "off",
@@ -106,8 +134,8 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
                n_shards: int = 1, profile: Sequence[Request] = (),
                update_capacity: int = 0, elastic: bool = False,
                prefer_tp: int = 4) -> ServeBinding:
-    """Engine + random weights + state + serve steps for a DLRM config on
-    ``device`` (the card unless ``"cpu"``), as the reference's
+    """Engine + random weights + state + serve steps for a DLRM or recsys
+    config on ``device`` (the card unless ``"cpu"``), as the reference's
     ``bind_model`` builds them on a mesh.
 
     ``n_shards`` is the cold tier's shard count (the reference mesh's tp),
@@ -115,7 +143,8 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     the kernels on the card, the plain versions on CPU tensors; 'torch':
     the plain versions), ``dedup`` and ``front_end`` configure the serve
     step; ``degraded_variants`` adds the brown-out rungs
-    (:func:`_dlrm_steps`); ``validate_ids`` / ``scrub_scores`` arm the
+    (:func:`_dlrm_steps`, :func:`_rec_steps`); ``validate_ids`` /
+    ``scrub_scores`` arm the
     binding's host-side guards; ``update_capacity`` (> 0) sets the
     binding's fixed streaming-update apply width (rows per device chunk:
     one signature); ``elastic`` arms the binding's re-mesh
@@ -125,27 +154,54 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     generators seeded with ``seed``, on the device itself.  ``profile``
     (this port only) places the hot tier before serving: ``observe`` over
     its requests, then ``plan_and_migrate``; without it the hot tier
-    starts empty and serving's warmup and maintenance place it."""
+    starts empty and serving's warmup and maintenance place it.
+
+    A recsys config binds with ``idx_key=None`` (its batches hold
+    table-local ids): the profiler stays off, so every re-plan (the
+    warmup's first) places the hot tier from the untouched histogram, as
+    in the reference; ``profile`` is DLRM-only, and ``front_end`` is
+    ignored."""
     dev = resolve_device(device)
-    engine, _ = dlrm_mod.build_engine(cfg, dev, hot_fraction=hot_fraction,
-                                      storage=storage, dedup=dedup,
-                                      n_shards=n_shards)
     gen = torch.Generator(device=dev)
-    model = initialize(dlrm_mod.DLRM(cfg, dev), gen.manual_seed(seed))
+    if isinstance(cfg, DLRMConfig):
+        engine, _ = dlrm_mod.build_engine(cfg, dev, hot_fraction=hot_fraction,
+                                          storage=storage, dedup=dedup,
+                                          n_shards=n_shards)
+        model = initialize(dlrm_mod.DLRM(cfg, dev), gen.manual_seed(seed))
+        idx_key = "indices"
+
+        def rebind(new_engine):
+            return _dlrm_steps(model, new_engine, mode=mode, impl=impl,
+                               dedup=dedup, front_end=front_end,
+                               degraded_variants=degraded_variants)
+    elif isinstance(cfg, RecConfig):
+        if profile:
+            raise TypeError("profile= places the hot tier from DLRM "
+                            "requests' global row ids; a recsys config's "
+                            "ids are table-local")
+        engine, offs = rec_mod.build_engine(cfg, dev,
+                                            hot_fraction=hot_fraction,
+                                            storage=storage, dedup=dedup,
+                                            n_shards=n_shards)
+        model = initialize(rec_mod.RecModel(cfg, dev), gen.manual_seed(seed))
+        idx_key = None     # field ids are table-local; profiler stays off
+
+        def rebind(new_engine):
+            return _rec_steps(model, new_engine, offs, mode=mode, impl=impl,
+                              dedup=dedup,
+                              degraded_variants=degraded_variants)
+    else:
+        raise TypeError(f"unsupported serving config {type(cfg)}")
     state = engine.init_state(gen.manual_seed(seed + 1))
     if profile:
         idx = np.stack([r.features["indices"] for r in profile])
         state = engine.observe(state, torch.as_tensor(idx, device=dev))
         state, _ = engine.plan_and_migrate(state)
-    def rebind(new_engine):
-        return _dlrm_steps(model, new_engine, mode=mode, impl=impl,
-                           dedup=dedup, front_end=front_end,
-                           degraded_variants=degraded_variants)
-
     step, steps = rebind(engine)
     binding = ServeBinding(engine, state, model, step, steps=steps,
                            validate_ids=validate_ids,
-                           scrub_scores=scrub_scores, impl=impl)
+                           scrub_scores=scrub_scores, impl=impl,
+                           idx_key=idx_key)
     if update_capacity > 0:
         binding.update_capacity = int(update_capacity)
     if elastic:
@@ -153,17 +209,32 @@ def bind_model(cfg: DLRMConfig, device: DeviceLike = None,
     return binding
 
 
-def make_padder(cfg: DLRMConfig
+def make_padder(cfg: Config
                 ) -> Callable[[Sequence[Request], Bucket], dict]:
-    """Request list -> bucket-shaped host batch."""
-    if not isinstance(cfg, DLRMConfig):
+    """Request list -> bucket-shaped host batch for the config's family."""
+    if isinstance(cfg, DLRMConfig):
+        def pad_dlrm(reqs, bucket):
+            idx, w = pad_pooled_indices(reqs, bucket)
+            return {"dense": stack_feature(reqs, bucket, "dense"),
+                    "indices": idx, "weights": w}
+        return pad_dlrm
+    if not isinstance(cfg, RecConfig):
         raise TypeError(f"unsupported serving config {type(cfg)}")
+    if cfg.interaction in ("self-attn-seq", "transformer-seq"):
+        def pad_seq(reqs, bucket):
+            out = {"seq": stack_feature(reqs, bucket, "seq"),
+                   "target": stack_feature(reqs, bucket, "target")}
+            if cfg.n_dense:
+                out["dense"] = stack_feature(reqs, bucket, "dense")
+            return out
+        return pad_seq
 
-    def pad_dlrm(reqs, bucket):
-        idx, w = pad_pooled_indices(reqs, bucket)
-        return {"dense": stack_feature(reqs, bucket, "dense"),
-                "indices": idx, "weights": w}
-    return pad_dlrm
+    def pad_fields(reqs, bucket):
+        out = {"fields": stack_feature(reqs, bucket, "fields")}
+        if cfg.n_dense:
+            out["dense"] = stack_feature(reqs, bucket, "dense")
+        return out
+    return pad_fields
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +253,22 @@ def _dlrm_features(cfg: DLRMConfig, ids: np.ndarray, rid: int,
             "indices": (ids + offs).astype(np.int32)}
 
 
+def _rec_features(cfg: RecConfig, rid: int, seed: int) -> dict:
+    rng = np.random.default_rng([seed, _FIELD_TAG, rid])
+    out: dict = {}
+    if cfg.interaction in ("self-attn-seq", "transformer-seq"):
+        V = cfg.vocab_sizes[0]
+        out["seq"] = _zipf_ids(rng, V, (cfg.seq_len,)).astype(np.int32)
+        out["target"] = _zipf_ids(rng, V, ()).astype(np.int32)
+    else:
+        out["fields"] = np.stack(
+            [_zipf_ids(rng, v, ()) for v in cfg.vocab_sizes]
+        ).astype(np.int32)
+    if cfg.n_dense:
+        out["dense"] = rng.normal(size=(cfg.n_dense,)).astype(np.float32)
+    return out
+
+
 def _serve_ids(cfg: DLRMConfig, load: LoadConfig, n):
     gen = TraceGenerator(TraceConfig(
         n_rows=cfg.emb_num, n_tables=cfg.n_tables, pooling=cfg.pooling,
@@ -190,10 +277,30 @@ def _serve_ids(cfg: DLRMConfig, load: LoadConfig, n):
                               drift_every=load.drift_every)
 
 
-def request_stream(cfg: DLRMConfig, load: LoadConfig) -> List[Request]:
-    """Materialise an open-loop request list (arrival times + features)."""
+def request_stream(cfg: Config, load: LoadConfig, workers: int = 1
+                   ) -> List[Request]:
+    """Materialise an open-loop request list (arrival times + features).
+
+    ``workers`` > 1 draws a recsys stream's features in that many spawned
+    processes (each request has its own generator, so the bits do not
+    change): a full-width Criteo request permutes five vocabularies of
+    2-10 M ids, about a second of host time each request."""
     times = arrival_times(load.arrival, load.n_requests)
     slo_s = load.slo_ms * 1e-3
+    if isinstance(cfg, RecConfig):
+        draw = functools.partial(_rec_features, cfg, seed=load.seed)
+        rids = range(load.n_requests)
+        if workers > 1:
+            with ProcessPoolExecutor(
+                    workers,
+                    mp_context=multiprocessing.get_context("spawn")) as ex:
+                feats = list(ex.map(draw, rids, chunksize=4))
+        else:
+            feats = [draw(i) for i in rids]
+        return [Request(rid=i, arrival_s=float(times[i]),
+                        deadline_s=float(times[i]) + slo_s,
+                        features=f, pooling=1)
+                for i, f in enumerate(feats)]
     return [Request(rid=i, arrival_s=float(times[i]),
                     deadline_s=float(times[i]) + slo_s,
                     features=_dlrm_features(cfg, ids, i, load.seed,
@@ -202,12 +309,19 @@ def request_stream(cfg: DLRMConfig, load: LoadConfig) -> List[Request]:
             for i, ids in enumerate(_serve_ids(cfg, load, load.n_requests))]
 
 
-def closed_loop_factory(cfg: DLRMConfig, load: LoadConfig
+def closed_loop_factory(cfg: Config, load: LoadConfig
                         ) -> Callable[[int, int, float], Request]:
     """Request factory for ``ClosedLoopSource`` (the open-loop stream's
     features, arrival set by the completion that frees the virtual
     user)."""
     slo_s = load.slo_ms * 1e-3
+    if isinstance(cfg, RecConfig):
+        def make_rec(rid: int, user: int, arrival_s: float) -> Request:
+            return Request(rid=rid, arrival_s=arrival_s,
+                           deadline_s=arrival_s + slo_s,
+                           features=_rec_features(cfg, rid, load.seed),
+                           pooling=1, user=user)
+        return make_rec
     it = _serve_ids(cfg, load, None)
 
     def make_dlrm(rid: int, user: int, arrival_s: float) -> Request:
@@ -220,7 +334,7 @@ def closed_loop_factory(cfg: DLRMConfig, load: LoadConfig
     return make_dlrm
 
 
-def update_stream(cfg: DLRMConfig, load: LoadConfig, scale: float = 1e-3
+def update_stream(cfg: Config, load: LoadConfig, scale: float = 1e-3
                   ) -> List[UpdateBatch]:
     """The trainer-side delta stream for an offered load.
 
@@ -229,7 +343,9 @@ def update_stream(cfg: DLRMConfig, load: LoadConfig, scale: float = 1e-3
     horizon (the last arrival).  Rows follow the load's trace distribution
     from an independent ``TraceGenerator`` (seed + 1) with its own drift,
     so updates skew hot as trainer output does; deltas are gaussians of
-    ``scale``, keyed per batch.  Empty when ``update_qps`` is 0."""
+    ``scale``, keyed per batch.  Empty when ``update_qps`` is 0.  Only
+    DLRM configs carry the engine-global row ids ``apply_deltas``
+    addresses: a recsys config raises ``TypeError``."""
     if load.update_qps <= 0:
         return []
     if not isinstance(cfg, DLRMConfig):
@@ -269,7 +385,10 @@ def prime_dedup_auto(binding: ServeBinding, requests: Sequence[Request],
     their stacked replay, and drops the resolution records and the seen
     signatures, so the caller's re-warmup resolves every bucket again
     against the primed histogram before steady state.  Returns the number
-    of requests observed."""
+    of requests observed: 0 for a binding whose profiler is off (no
+    ``idx_key``), which drops nothing."""
+    if binding.idx_key is None:
+        return 0
     engine = binding.engine
     seen = 0
     by_pooling: dict = {}
@@ -290,9 +409,22 @@ def prime_dedup_auto(binding: ServeBinding, requests: Sequence[Request],
     return seen
 
 
-def dummy_request_factory(cfg: DLRMConfig, storage: str = "fp32"
+def dummy_request_factory(cfg: Config, storage: str = "fp32"
                           ) -> Callable[[int, int], Request]:
-    """Fabricate bucket-warmup dummies (valid ids, seeded features)."""
+    """Fabricate bucket-warmup dummies (valid ids, seeded features).  A
+    recsys dummy's features are request 0's of seed 0, as the reference's;
+    drawn once per factory and shared, since at the Criteo vocabularies one
+    draw costs about a second of host time."""
+    if isinstance(cfg, RecConfig):
+        feats: dict = {}
+
+        def make_rec(rid: int, pooling: int) -> Request:
+            if not feats:
+                feats.update(_rec_features(cfg, 0, 0))
+            return Request(rid=-1 - rid, arrival_s=0.0, deadline_s=1e9,
+                           features=feats, pooling=1)
+        return make_rec
+
     def make_dlrm(rid: int, pooling: int) -> Request:
         ids = np.zeros((cfg.n_tables, pooling), dtype=np.int64)
         return Request(rid=-1 - rid, arrival_s=0.0, deadline_s=1e9,

@@ -33,7 +33,10 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         "          'checkpoint.checkpointer', 'serving.updates',\n"
         "          'kernels.updates', 'core.integrity', 'kernels.integrity',\n"
         "          'serving.scrub', 'serving.faults', 'serving.degradation',\n"
-        "          'runtime.fault_tolerance', 'runtime.elastic'):\n"
+        "          'runtime.fault_tolerance', 'runtime.elastic',\n"
+        "          'models.recsys', 'data.synth', 'configs.sasrec',\n"
+        "          'configs.bst', 'configs.autoint', 'configs.dcn_v2',\n"
+        "          'examples.serve_recsys'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
