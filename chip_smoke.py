@@ -173,6 +173,31 @@
    1,000,000 candidates (finite, within 1e-5 of the plain path, timed);
    and a pinned SASRec pair, dedup off and on: one flush trace, scores
    bitwise equal, ``masked_sls_dedup`` launched.
+13. paper phase: the paper's comparison -- ``simulate`` for the five
+   systems on the RMC4 trace of ``examples/pifs_vs_pond.py`` (196,608
+   accesses; one ``paper_sim`` line each, beside the paper's ratio; the
+   paper's ordering holds); that example's engine cross-check at RMC4's
+   full width (8 x 1,048,576 rows, D = 128, 4 shards), fp32 and int8,
+   dedup off and on, the kernel path against the plain path bitwise (pifs
+   and pond), the duplicate factor equal, each lookup timed (one
+   ``paper_lookup`` line each); and ``examples/quickstart.py`` on the card,
+   kernel path against plain bitwise; launch counts zeroed just before
+   each kernel-path run and read just after (``masked_sls`` and
+   ``masked_sls_dedup`` must have run);
+14. train phase: ``launch.train`` on the card at published widths --
+   DLRM RMC1 (pifs and pond) and RMC4 (pifs), fp32, batch 2048, 4 steps
+   with an observe after each and a re-plan after step 3, the kernel path
+   against the plain path from the same seeds and batches (losses within
+   1e-5 relative, both tiers within 1e-5 + 1e-4 relative, the same page
+   table), DCN-v2 over the full Criteo vocabularies and SASRec at 1 M x 50
+   (batches drawn once; kernel == plain bitwise, losses and tiers); one
+   ``train`` line per run with step times and peak memory; at RMC4 the
+   step's device busy share and operations, each backward and the dense
+   ``rowwise_adagrad`` update timed against their bounds
+   (``train_timing`` lines); and ``examples/train_dlrm.py`` on the card
+   with its injected failure (one restart); launch and backward counts
+   zeroed just before each kernel-path run and read just after
+   (``masked_sls`` and ``dot_interaction`` must have run).
 
 ``--only`` runs the build and the named phases alone, for a quicker look,
 and prints neither of the last two lines.
@@ -3407,8 +3432,384 @@ def recsys_phase(gen: torch.Generator) -> tuple:
     return lines, steps, rows, launches, dedup_launches
 
 
+# ------------------------------------------------------------ paper phase
+def paper_phase(gen: torch.Generator) -> tuple:
+    """Phase 13: the paper's comparison.  (a) ``simulate`` for all five
+    systems on the example's RMC4 trace (6 batches of 512, 196,608
+    accesses; numpy on the host), one ``paper_sim`` line per system beside
+    the paper's ratio, and the paper's ordering as ``tests/test_simlab.py``
+    holds it.  (b) ``examples.pifs_vs_pond.engine_cross_check`` at RMC4's
+    full width (8 x 1,048,576 rows, D = 128, 4 shards), fp32 and int8,
+    dedup off and on: the kernel path's run (launch counts zeroed just
+    before, read just after) against the plain path's run from the same
+    seed, pifs and pond bitwise, the duplicate factor equal, pifs == pond
+    within 1e-5 (the example checks it); each lookup timed (CUDA events,
+    dirty L2), pifs beside pond.  (c) ``examples.quickstart`` at its own
+    sizes, fp32 / int8 and dedup off / on, kernel path against plain:
+    lookups before and after its re-plan bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import pifs_vs_pond as pvp
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    model = get_config("rmc4")
+    t = time.perf_counter()
+    flat = pvp.paper_trace(model)
+    res = pvp.simulate_all(model, flat)
+    sim_s = time.perf_counter() - t
+    check(flat.size == 196_608, f"paper: trace of {flat.size} accesses")
+    tt = {k: r.total_us for k, r in res.items()}
+    sim = []
+    for name, r in res.items():
+        sim.append({"system": name, "latency_us": r.total_us,
+                    "binding": r.binding,
+                    "local_pct": 100 * r.frac_local_access,
+                    "hit_pct": 100 * r.buffer_hit_rate,
+                    "vs_pifs": r.total_us / tt["pifs"],
+                    "paper": pvp.PAPER.get(name)})
+        print("paper_sim " + json.dumps(sim[-1]), flush=True)
+    check(tt["pifs"] < tt["recnmp"] < tt["beacon"] < tt["pond"],
+          f"paper: system ordering {tt}")
+    check(tt["pifs"] < tt["pond_pm"] <= tt["pond"] * 1.05,
+          f"paper: pond_pm ordering {tt}")
+    print(f"paper: simulated {len(res)} systems in {sim_s:.2f} s", flush=True)
+
+    timer = Timer()
+    launches = {k: 0 for k in build.KERNELS}
+    lookups = []
+    for storage in ("fp32", "int8"):
+        for dedup in ("off", "on"):
+            tag = f"paper cross-check rmc4 {storage} dedup={dedup}"
+            build.reset_launches()
+            k = pvp.engine_cross_check(model, storage, dedup, "cuda", "cuda",
+                                       n_rows=model.emb_num)
+            torch.cuda.synchronize()
+            for name, v in build.KERNELS.items():
+                launches[name] += v.launches
+            p = pvp.engine_cross_check(model, storage, dedup, "torch",
+                                       "cuda", n_rows=model.emb_num)
+            assert_equal(k["pifs"], p["pifs"], f"{tag}: pifs kernel vs plain")
+            assert_equal(k["pond"], p["pond"], f"{tag}: pond kernel vs plain")
+            check(k["dedup"] == p["dedup"], f"{tag}: duplicate factors "
+                                            f"{k['dedup']} != {p['dedup']}")
+            del p
+            eng, st, idx = k["engine"], k["state"], k["idx"]
+            line = {"storage": storage, "dedup": dedup,
+                    "rows_per_table": k["n_rows"],
+                    "n_shards": eng.cfg.n_shards,
+                    "bags": int(idx.shape[0] * idx.shape[1]),
+                    "factor": k["dedup"]["factor"],
+                    "pifs_pond_max_diff": float(
+                        (k["pifs"] - k["pond"]).abs().max())}
+            for mode in ("pifs", "pond"):
+                line[f"{mode}_ms"] = timer(
+                    lambda: eng.lookup(st, idx, mode=mode, dedup=dedup))
+                line[f"{mode}_plain_ms"] = timer(
+                    lambda: eng.lookup(st, idx, mode=mode, dedup=dedup,
+                                       impl="torch"))
+            lookups.append(line)
+            print("paper_lookup " + json.dumps(line), flush=True)
+            del k, eng, st, idx
+            torch.cuda.empty_cache()
+    del timer
+    for storage, dedup in (("fp32", "off"), ("int8", "on")):
+        argv = ["--storage", storage, "--dedup", dedup]
+        build.reset_launches()
+        k = quickstart.main(argv)
+        torch.cuda.synchronize()
+        for name, v in build.KERNELS.items():
+            launches[name] += v.launches
+        p = quickstart.main(argv + ["--impl", "torch"])
+        for key in ("pooled", "pond"):
+            assert_equal(k[key], p[key], f"quickstart {storage} {dedup}: "
+                                         f"{key} kernel vs plain")
+        check(np.array_equal(k["before"], p["before"])
+              and np.array_equal(k["after"], p["after"]),
+              f"quickstart {storage} {dedup}: re-planned lookups differ")
+    for name in ("masked_sls", "masked_sls_dedup"):
+        check(launches[name] > 0, f"paper phase: kernel {name} not launched")
+    print(f"paper phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return sim, lookups, launches
+
+
+# ------------------------------------------------------------ train phase
+TRAIN_B = 2048           # DLRM and recsys train batches
+TRAIN_STEPS = 4          # a re-plan after step 3 (DLRM)
+TRAIN_REPLAN = 3
+TIER_RTOL, TIER_ATOL = 1e-4, 1e-5    # as the CPU tests hold the reference
+
+
+def sls_grad_cost(grad_out, indices, n_rows: int) -> dict:
+    """What ``ref.sls_table_grad`` must move: the dense (n_rows, D) table
+    gradient written once, the bag gradients, ids and masks read once; a
+    multiply and an add per entry and element."""
+    N, L = indices.shape
+    D = grad_out.shape[1]
+    nbytes = n_rows * D * 4 + N * D * 4 + N * L * (4 + 1)
+    return bound(nbytes, 2 * N * L * D)
+
+
+def train_timing(k: dict, batch: dict) -> list:
+    """On a trained RMC4 state (``train_dlrm``'s result): the train step
+    (host clock to a synchronize, median of 5) with the card's busy share
+    and operations per step from ``torch.profiler``; each backward (CUDA
+    events, dirty L2) against its bound at the step's shapes, the library
+    call where one computes the same from the entries' contributions; and
+    the dense ``rowwise_adagrad`` update of both tiers, with its bytes."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ref
+    from repro_torch.models import dlrm
+    from repro_torch.optim.optimizers import adam, rowwise_adagrad
+
+    model, eng, st = k["model"], k["engine"], k["state"]
+    os_, eos = k["opt_state"], k["emb_opt_state"]
+    opt, eopt = adam(1e-3), rowwise_adagrad(5e-2)
+    step_fn = dlrm.make_train_step(model, eng, opt, eopt)
+    b = shard_batch(batch, "cuda")
+
+    def step(s, bb):
+        step_fn(s, os_, eos, bb)
+    for _ in range(2):
+        step(st, b)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step(st, b)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(ts)
+    rows = [{"name": "train_step", "arch": "rmc4",
+             "batch": int(b["dense"].shape[0]), "step_ms": ms,
+             **device_busy(step, st, b, ms, reps=3)}]
+
+    timer = Timer(reps=10)
+    B, T, L = b["indices"].shape
+    N = B * T
+    local_row, owned, is_hot, _ = eng._address(st, b["indices"].reshape(N,
+                                                                         L))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn((N, eng.cfg.dim), generator=gen, device="cuda")
+    for tier, table, mask in (("cold", st.cold, owned[0]),
+                              ("hot", st.hot, is_hot)):
+        R = table.shape[0]
+        fn = (lambda: ref.sls_table_grad(g, local_row, mask, None, R))
+        safe = torch.where(mask, local_row, 0).reshape(-1).long()
+        contrib = (mask.to(torch.float32)[..., None] * g[:, None, :]
+                   ).reshape(N * L, -1)
+        zero = torch.zeros_like(table, dtype=torch.float32)
+        lib = (lambda: zero.index_add_(0, safe, contrib))
+        err = float((fn() - zero.zero_().index_add_(0, safe, contrib)
+                     ).abs().max())
+        rows.append({"name": f"masked_sls_backward/{tier}", "rows": R,
+                     "entries": N * L, "ms": timer(fn),
+                     "library_ms": timer(lib), "max_abs_err": err,
+                     **sls_grad_cost(g, local_row, R)})
+        del zero, lib
+    F = T + 1
+    feats = torch.randn((B, F, eng.cfg.dim), generator=gen, device="cuda")
+    gi = torch.randn((B, F * (F - 1) // 2), generator=gen, device="cuda")
+    fn = (lambda: ref.dot_interaction_grad(gi, feats))
+    fi = feats.clone().requires_grad_(True)
+    auto = torch.autograd.grad(ref.dot_interaction_ref(fi), fi, gi)[0]
+    P = F * (F - 1) // 2
+    rows.append({"name": "dot_interaction_backward", "batch": B, "F": F,
+                 "ms": timer(fn), "library_ms": None,
+                 "max_abs_err": float((fn() - auto).abs().max()),
+                 **bound(2 * B * F * eng.cfg.dim * 4 + B * P * 4,
+                         4 * B * P * eng.cfg.dim)})
+    gc = torch.randn_like(st.cold) * 1e-3
+    gh = torch.randn_like(st.hot) * 1e-3
+    tiers = {"cold": st.cold, "hot": st.hot}
+    upd = (lambda: eopt.update({"cold": gc, "hot": gh}, eos, tiers))
+    R, D = st.cold.shape[0] + st.hot.shape[0], eng.cfg.dim
+    rows.append({"name": "rowwise_adagrad_dense_update", "rows": R,
+                 "ms": timer(upd), "library_ms": None, "max_abs_err": None,
+                 **bound((3 * R * D + 2 * R) * 4, 5 * R * D)})
+    del gc, gh, timer
+    return rows
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    return t.clone()
+
+
+def lockstep_dlrm(cfg, mode: str, batches: list) -> dict:
+    """The kernel path's DLRM train steps against the plain path's, each
+    from the same state: ``launch.train.train_dlrm``'s set-up (seeds 0 and
+    1, adam and rowwise_adagrad), and before every step a copy of the
+    model, both tiers and the optimizer states takes the plain step while
+    the originals take the kernel step; then the originals observe, and
+    re-plan after step ``TRAIN_REPLAN``.  Whole runs are not compared: a
+    gradient at the noise level that changes sign moves an adam weight by
+    2 lr, and at RMC4 the run is chaotic after a few steps (loss 0.69 ->
+    0.50 -> 4.34 on this card), so run-long differences say nothing of
+    the kernels.  Losses within 1e-5 relative, both tiers within
+    ``TIER_ATOL`` + ``TIER_RTOL`` relative, each step; the largest errors
+    and the kernel steps' host-clock times are returned."""
+    import copy
+    import dataclasses
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import dlrm
+    from repro_torch.models.params import initialize
+    from repro_torch.optim.optimizers import adam, rowwise_adagrad
+
+    eng, _ = dlrm.build_engine(cfg, "cuda")
+    model = initialize(dlrm.DLRM(cfg, "cuda"),
+                       torch.Generator(device="cuda").manual_seed(0))
+    st = eng.init_state(torch.Generator(device="cuda").manual_seed(1))
+    opt, eopt = adam(1e-3), rowwise_adagrad(5e-2)
+    os_ = opt.init(dict(model.named_parameters()))
+    eos = eopt.init({"cold": st.cold, "hot": st.hot})
+    kstep = dlrm.make_train_step(model, eng, opt, eopt, mode=mode)
+    tag = f"train lockstep {cfg.name} {mode}"
+    lerr = terr = 0.0
+    losses, step_ms = [], []
+    for i, nb in enumerate(batches):
+        b = shard_batch(nb, "cuda")
+        m2 = copy.deepcopy(model)
+        st2 = dataclasses.replace(st, cold=st.cold.clone(),
+                                  hot=st.hot.clone())
+        os2, eos2 = _clone_tree(os_), _clone_tree(eos)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, os_, eos, mk = kstep(st, os_, eos, b)
+        lk = float(mk["loss"])
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        pstep = dlrm.make_train_step(m2, eng, opt, eopt, mode=mode,
+                                     impl="torch")
+        st2, _, _, mp = pstep(st2, os2, eos2, b)
+        lp = float(mp["loss"])
+        check(np.isfinite(lk), f"{tag}: step {i} loss {lk}")
+        e = abs(lk - lp) / abs(lp)
+        check(e <= 1e-5, f"{tag}: step {i} losses {lk} vs {lp}")
+        lerr = max(lerr, e)
+        for a, p in ((st.cold, st2.cold), (st.hot, st2.hot)):
+            d = (a - p).abs()
+            check(bool((d <= TIER_ATOL + TIER_RTOL * p.abs()).all()),
+                  f"{tag}: step {i} tiers differ by {float(d.max()):.3e}")
+            terr = max(terr, float(d.max()))
+        losses.append(lk)
+        del m2, st2, os2, eos2
+        st = eng.observe(st, b["indices"])
+        if (i + 1) % TRAIN_REPLAN == 0:
+            st, _ = eng.plan_and_migrate(st)
+    return {"losses": losses, "lockstep_step_ms": step_ms,
+            "loss_rel_err": lerr, "tier_max_err": terr}
+
+
+def train_phase(gen: torch.Generator) -> tuple:
+    """Phase 14: training on the card.  DLRM at RMC1 and RMC4's published
+    widths, fp32, pifs (RMC1 also pond), batch 2048, 4 steps with an
+    observe after each and a re-plan after step 3: ``launch.train.
+    train_dlrm`` (its step times, peak memory, finite losses), then
+    :func:`lockstep_dlrm` (kernel path against plain path, each step from
+    the same state).  The recsys family: DCN-v2 over the full Criteo
+    vocabularies and SASRec at 1 M x 50, batch 2048, 4 steps, batches
+    drawn once: ``launch.train.train_rec``'s kernel run == its plain run
+    bitwise, losses and tiers (every lookup an L = 1 bag of weight 1, one
+    deterministic backward).  Launch and backward counts are zeroed just
+    before each kernel-path run and read just after (``masked_sls`` and
+    ``dot_interaction`` must have run).  One ``train`` JSON line per
+    config.  Then at RMC4 :func:`train_timing`; and
+    ``examples.train_dlrm`` on the card: 200 steps with its injected
+    failure, one restart."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth
+    from repro_torch.examples import train_dlrm as train_example
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import train as lt
+
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in build.KERNELS}
+    backwards = {k: 0 for k in ops.BACKWARDS}
+
+    def counted(fn, *a, **kw):
+        build.reset_launches()
+        ops.reset_backwards()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        for k, v in build.KERNELS.items():
+            launches[k] += v.launches
+        for k, v in ops.BACKWARDS.items():
+            backwards[k] += v
+        return out
+
+    lines, timing = [], []
+    for arch, mode in (("rmc1", "pifs"), ("rmc1", "pond"),
+                       ("rmc4", "pifs"), ("dcn-v2", "pifs"),
+                       ("sasrec", "pifs")):
+        cfg = get_config(arch)
+        dlrm_arch = arch.startswith("rmc")
+        t = time.perf_counter()
+        batches = list(synth.dlrm_batches(cfg, TRAIN_B, TRAIN_STEPS)
+                       if dlrm_arch else
+                       synth.rec_batches(cfg, TRAIN_B, TRAIN_STEPS))
+        draw_s = time.perf_counter() - t
+        fn = lt.train_dlrm if dlrm_arch else lt.train_rec
+        kw = dict(mode=mode, log_every=10 ** 9, device="cuda",
+                  batches=batches)
+        if dlrm_arch:
+            kw["replan_every"] = TRAIN_REPLAN
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k = counted(fn, cfg, TRAIN_STEPS, TRAIN_B, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        ks = k["state"]
+        tag = f"train {arch} {mode}"
+        check(all(np.isfinite(k["losses"])), f"{tag}: non-finite loss")
+        line = {"arch": arch, "mode": mode, "batch": TRAIN_B,
+                "steps": TRAIN_STEPS, "draw_s": draw_s,
+                "losses": k["losses"],
+                "step_ms": [x * 1e3 for x in k["step_s"]],
+                "median_step_ms": k["median_step_ms"],
+                "peak_gb": peak / 1e9,
+                "cold_gb": ks.cold.numel() * 4 / 1e9}
+        if dlrm_arch:
+            if arch == "rmc4":
+                timing = train_timing(k, batches[0])
+            del k, ks
+            torch.cuda.empty_cache()
+            line.update(counted(lockstep_dlrm, cfg, mode, batches))
+        else:
+            p = fn(cfg, TRAIN_STEPS, TRAIN_B, impl="torch", **kw)
+            check(k["losses"] == p["losses"],
+                  f"{tag}: losses kernel vs plain {k['losses']} != "
+                  f"{p['losses']}")
+            assert_equal(ks.cold, p["state"].cold, f"{tag}: cold tier")
+            assert_equal(ks.hot, p["state"].hot, f"{tag}: hot tier")
+            line.update({"plain_median_step_ms": p["median_step_ms"],
+                         "bitwise": True})
+            del k, ks, p
+        lines.append(line)
+        print("train " + json.dumps(line), flush=True)
+        del batches
+        torch.cuda.empty_cache()
+    for r in timing:
+        print("train_timing " + json.dumps(r), flush=True)
+    for name in ("masked_sls", "dot_interaction"):
+        check(launches[name] > 0, f"train phase: kernel {name} not launched")
+    check(backwards["masked_sls"] > 0 and backwards["dot_interaction"] > 0,
+          f"train phase: backwards {backwards}")
+    out = counted(train_example.main, [])
+    rep = out["report"]
+    check(rep.steps_done == 200 and rep.restarts == 1,
+          f"train example: {rep.steps_done} steps, {rep.restarts} restarts")
+    example = {"steps": rep.steps_done, "restarts": rep.restarts,
+               "loss_first": out["losses"][0],
+               "loss_last": out["losses"][-1], "seconds": out["seconds"]}
+    print("train_example " + json.dumps(example), flush=True)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}; backwards {backwards}", flush=True)
+    return lines, timing, launches, backwards
+
+
 PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
-          "recsys")
+          "recsys", "paper", "train")
 
 
 def main(argv=None) -> None:
@@ -3457,7 +3858,9 @@ def main(argv=None) -> None:
                "updates": lambda: updates_phase(gen),
                "integrity": lambda: integrity_phase(gen),
                "faults": faults_phase,
-               "recsys": lambda: recsys_phase(gen)}
+               "recsys": lambda: recsys_phase(gen),
+               "paper": lambda: paper_phase(gen),
+               "train": lambda: train_phase(gen)}
         for p in only:
             run[p]()
             torch.cuda.empty_cache()
@@ -3478,6 +3881,11 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     _, _, rec_rows, rec_launches, rec_dedup_launches = recsys_phase(gen)
     details += rec_rows
+    torch.cuda.empty_cache()
+    _, _, paper_launches = paper_phase(gen)
+    torch.cuda.empty_cache()
+    _, _, train_launches, _ = train_phase(gen)
+    torch.cuda.empty_cache()
     for d in details:
         print("timing " + json.dumps(d), flush=True)
     for s in steps:
@@ -3509,6 +3917,8 @@ def main(argv=None) -> None:
                                            "library_ms")},
                 "runtime_launches": rt_launches[k.name],
                 "faults_launches": fault_launches[k.name],
+                "paper_launches": paper_launches[k.name],
+                "train_launches": train_launches[k.name],
                 "shape": f"rmc4 fp32 whole store, {d['pages']} pages "
                          f"({d['hot_pages']} hot), 1 shard"})
             continue
@@ -3521,6 +3931,8 @@ def main(argv=None) -> None:
                                            "bound_ms", "bound_by",
                                            "library_ms")},
                 "runtime_launches": rt_launches[k.name],
+                "paper_launches": paper_launches[k.name],
+                "train_launches": train_launches[k.name],
                 "shape": f"rmc4 fp32 {d['rows']} rows x {d['dim']} "
                          f"({d['hot_rows']} hot), library index_add_ per "
                          "tier"})
@@ -3550,6 +3962,8 @@ def main(argv=None) -> None:
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
             "runtime_launches": rt_launches[k.name], **rec_extra,
+            "paper_launches": paper_launches[k.name],
+            "train_launches": train_launches[k.name],
             "shape": f"rmc4 fp32 batch 2048 ({row}, "
                      f"{d.get('n_shards', 1)} shard(s))"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -110,6 +110,10 @@ class TraceGenerator:
         self._n_batches += 1
         return out
 
+    def stream(self, n_batches: int) -> Iterator[np.ndarray]:
+        for _ in range(n_batches):
+            yield self.next_batch()
+
     def serve_requests(self, n: Optional[int] = None,
                        poolings: Optional[Sequence[int]] = None,
                        drift_every: int = 0) -> Iterator[np.ndarray]:
@@ -134,3 +138,20 @@ class TraceGenerator:
                 self._drift(np.random.default_rng(
                     [c.seed, _SERVE_DRIFT_TAG, i]))
             yield out
+
+
+def flatten_trace(batches: np.ndarray, n_rows: int) -> np.ndarray:
+    """(B, T, L) table-local -> flat global row ids (table-stacked)."""
+    B, T, L = batches.shape
+    offs = (np.arange(T, dtype=np.int64) * n_rows)[None, :, None]
+    return (batches + offs).reshape(-1)
+
+
+def make_trace(distribution: str, n_rows: int, n_tables: int = 8,
+               pooling: int = 8, batch: int = 1024, n_batches: int = 16,
+               seed: int = 0, **kw) -> np.ndarray:
+    """Convenience: a full (n_batches, B, T, L) trace tensor."""
+    gen = TraceGenerator(TraceConfig(
+        n_rows=n_rows, n_tables=n_tables, pooling=pooling, batch=batch,
+        distribution=distribution, seed=seed, **kw))
+    return np.stack(list(gen.stream(n_batches)))

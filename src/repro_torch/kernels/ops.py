@@ -15,6 +15,16 @@ is a multiple of 16 (fp32 D % 4 == 0, int8 D % 16 == 0, which covers the
 RMC widths 64 and 128) and the tables are 16-byte aligned (every PyTorch
 allocation is), the kernels load 16 bytes per thread; any other D takes
 the kernels' scalar path and stays correct.
+
+Gradients.  ``masked_sls``, ``masked_sls_dedup`` and ``dot_interaction``
+are ``torch.autograd.Function``s when a float table (or the features)
+requires a gradient: the forward is the dispatch above, the backward is
+plain PyTorch (``ref.sls_table_grad``, ``ref.dot_interaction_grad``), as
+the reference's is XLA's transpose of a gather and of a dot (no Pallas
+kernel has a ``custom_vjp``).  They give no gradient for indices, masks,
+weights or scales, and refuse weights or scales that ask for one.  The
+fused routes have no backward and raise on an input that requires a
+gradient: the reference's train step reaches none of them.
 """
 from __future__ import annotations
 
@@ -29,6 +39,14 @@ from repro_torch.kernels import sls as _sls
 from repro_torch.kernels import updates as _updates
 
 IMPLS = ("cuda", "torch")
+# backward passes run, by function (plain PyTorch, counted as the kernels'
+# launches are, so a caller can read how often its path differentiated)
+BACKWARDS = {"masked_sls": 0, "masked_sls_dedup": 0, "dot_interaction": 0}
+
+
+def reset_backwards() -> None:
+    for k in BACKWARDS:
+        BACKWARDS[k] = 0
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -37,24 +55,88 @@ def _use_kernel(impl: str, t: torch.Tensor) -> bool:
     return impl == "cuda" and t.device.type == "cuda"
 
 
-def masked_sls(table: torch.Tensor, indices: torch.Tensor,
-               owned: Optional[torch.Tensor] = None,
-               weights: Optional[torch.Tensor] = None,
-               scales: Optional[torch.Tensor] = None,
-               impl: str = "cuda") -> torch.Tensor:
-    """Masked partial SLS in fixed l-order: (N, L) -> (N, D) float32.
-    ``owned=None`` is plain SLS; ``scales`` dequantize an int8 table."""
-    _sls.check_masked_sls(table, indices, owned, weights, scales)
+def _wants_grad(t: Optional[torch.Tensor]) -> bool:
+    return t is not None and t.requires_grad and torch.is_grad_enabled()
+
+
+def _table_grad_only(what: str, *others: Optional[torch.Tensor]) -> None:
+    if any(_wants_grad(t) for t in others):
+        raise NotImplementedError(
+            f"{what} differentiates its table only; weights and scales "
+            "take no gradient")
+
+
+def _no_grad_route(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    if any(_wants_grad(t) for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: train through the split front end "
+            "(lookup, then dot_interaction), as the reference's train "
+            "step does")
+
+
+def _masked_sls(table, indices, owned, weights, scales, impl):
     if _use_kernel(impl, table):
         return _sls.masked_sls(table, indices, owned, weights, scales)
     return ref._fixed_order_masked_sls(table, indices, owned, weights,
                                        scales)
 
 
+class _MaskedSLS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, indices, owned, weights, scales, impl):
+        ctx.save_for_backward(indices, owned, weights)
+        ctx.n_rows = table.shape[0]
+        return _masked_sls(table, indices, owned, weights, scales, impl)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indices, owned, weights = ctx.saved_tensors
+        BACKWARDS["masked_sls"] += 1
+        return (ref.sls_table_grad(grad_out, indices, owned, weights,
+                                   ctx.n_rows),
+                None, None, None, None, None)
+
+
+def masked_sls(table: torch.Tensor, indices: torch.Tensor,
+               owned: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None,
+               impl: str = "cuda") -> torch.Tensor:
+    """Masked partial SLS in fixed l-order: (N, L) -> (N, D) float32.
+    ``owned=None`` is plain SLS; ``scales`` dequantize an int8 table.
+    Differentiable in a float ``table`` (module docstring)."""
+    _sls.check_masked_sls(table, indices, owned, weights, scales)
+    _table_grad_only("masked_sls", weights, scales)
+    if _wants_grad(table):
+        return _MaskedSLS.apply(table, indices, owned, weights, scales, impl)
+    return _masked_sls(table, indices, owned, weights, scales, impl)
+
+
+class _DotInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, self_interaction, impl):
+        ctx.save_for_backward(feats)
+        ctx.self_interaction = self_interaction
+        if _use_kernel(impl, feats):
+            return _interaction.dot_interaction(feats, self_interaction)
+        return ref.dot_interaction_ref(feats, self_interaction)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        feats, = ctx.saved_tensors
+        BACKWARDS["dot_interaction"] += 1
+        return (ref.dot_interaction_grad(grad_out, feats,
+                                         ctx.self_interaction),
+                None, None)
+
+
 def dot_interaction(feats: torch.Tensor, self_interaction: bool = False,
                     impl: str = "cuda") -> torch.Tensor:
-    """DLRM pairwise-dot interaction: (B, F, D) -> (B, P)."""
+    """DLRM pairwise-dot interaction: (B, F, D) -> (B, P).
+    Differentiable in ``feats``."""
     _interaction.check_dot_interaction(feats)
+    if _wants_grad(feats):
+        return _DotInteraction.apply(feats, self_interaction, impl)
     if _use_kernel(impl, feats):
         return _interaction.dot_interaction(feats, self_interaction)
     return ref.dot_interaction_ref(feats, self_interaction)
@@ -69,6 +151,7 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
     """Fused two-tier masked SLS -> dot interaction: (B, P)."""
     _sls.check_fused_front_end(cold, hot, x, rows, owned, is_hot, weights,
                                scales)
+    _no_grad_route("fused_front_end", cold, hot, x, weights)
     if _use_kernel(impl, cold):
         return _sls.fused_front_end(cold, hot, x, rows, owned, is_hot,
                                     weights, scales)
@@ -85,12 +168,40 @@ def masked_sls_dedup(table: torch.Tensor, plan, owned: torch.Tensor,
     :func:`masked_sls` on the same entries."""
     _sls.check_masked_sls_dedup(table, plan.unique_rows, plan.slots, owned,
                                 plan.n_slots, weights, plan.unique_scales)
+    _table_grad_only("masked_sls_dedup", weights, plan.unique_scales)
+    if _wants_grad(table):
+        return _MaskedSLSDedup.apply(table, plan, owned, weights, impl)
+    return _masked_sls_dedup(table, plan, owned, weights, impl)
+
+
+def _masked_sls_dedup(table, plan, owned, weights, impl):
     if _use_kernel(impl, table):
         return _sls.masked_sls_dedup(table, plan.unique_rows, plan.slots,
                                      owned, plan.n_slots, weights,
                                      plan.unique_scales)
     return ref.masked_sls_dedup_ref(table, plan.unique_rows, plan.slots,
                                     owned, weights, plan.unique_scales)
+
+
+class _MaskedSLSDedup(torch.autograd.Function):
+    """The gather-once SLS; its backward reaches each entry's row through
+    its slot of the plan (the staging gather's clamp included)."""
+
+    @staticmethod
+    def forward(ctx, table, plan, owned, weights, impl):
+        V = table.shape[0]
+        rows = plan.unique_rows.long().clamp(max=V - 1)[plan.slots.long()]
+        ctx.save_for_backward(rows, owned, weights)
+        ctx.n_rows = V
+        return _masked_sls_dedup(table, plan, owned, weights, impl)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rows, owned, weights = ctx.saved_tensors
+        BACKWARDS["masked_sls_dedup"] += 1
+        return (ref.sls_table_grad(grad_out, rows, owned, weights,
+                                   ctx.n_rows),
+                None, None, None, None)
 
 
 def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
@@ -106,6 +217,7 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
             hp.unique_rows, hp.slots, hp.n_slots, owned, is_hot, weights,
             cp.unique_scales)
     _sls.check_fused_front_end_dedup(*args)
+    _no_grad_route("fused_front_end_dedup", cold, hot, x, weights)
     if _use_kernel(impl, cold):
         return _sls.fused_front_end_dedup(*args)
     return ref.fused_front_end_dedup_ref(
@@ -128,6 +240,7 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
     own4 = owned[None] if one else owned
     _sls.check_fused_partial_pool(cold, hot, x, rows, own4, is_hot, weights,
                                   scales)
+    _no_grad_route("fused_partial_pool", cold, hot, x, weights)
     if _use_kernel(impl, cold):
         part_c, part_h = _sls.fused_partial_pool(cold, hot, x, rows, own4,
                                                  is_hot, weights, scales)
@@ -152,6 +265,7 @@ def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
     args = (cold, hot, x, cp.unique_rows, cs4, cp.n_slots, hp.unique_rows,
             hp.slots, hp.n_slots, own4, is_hot, weights, cp.unique_scales)
     _sls.check_fused_partial_pool_dedup(*args)
+    _no_grad_route("fused_partial_pool_dedup", cold, hot, x, weights)
     if _use_kernel(impl, cold):
         part_c, part_h = _sls.fused_partial_pool_dedup(*args)
         return (part_c[0] if one else part_c), part_h
@@ -167,6 +281,7 @@ def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor,
     (B, P)."""
     c4 = part_c[None] if part_c.dim() == 3 else part_c
     _interaction.check_fused_resume(c4, part_h)
+    _no_grad_route("fused_resume", part_c, part_h)
     if _use_kernel(impl, part_h):
         return _interaction.fused_resume(c4, part_h)
     return ref.fused_resume_ref(part_c, part_h)

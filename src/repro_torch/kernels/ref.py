@@ -119,6 +119,48 @@ def masked_sls_dedup_ref(table: torch.Tensor, unique_rows: torch.Tensor,
     return _fixed_order_accumulate(staging[slots.long()], f)
 
 
+def sls_table_grad(grad_out: torch.Tensor, indices: torch.Tensor,
+                   owned: Optional[torch.Tensor],
+                   weights: Optional[torch.Tensor], n_rows: int
+                   ) -> torch.Tensor:
+    """The table's gradient of a masked SLS (any of the plain versions
+    above): ``grad[r] = sum over owned entries (b, l) naming row r of
+    w[b,l] * grad_out[b]`` -> (n_rows, D) float32, dense as the
+    reference's transpose of its gather is.
+
+    The sum is PyTorch's gradient of an embedding gather
+    (``embedding_dense_backward``): it sorts the entries by row and sums
+    each row's in a fixed order, in parallel over a row's duplicates, so
+    a run repeats bit for bit on the CPU and the card and a zipfian hot
+    row does not serialize.  A masked entry names a padding row past the
+    table, which that function skips."""
+    N, L = indices.shape
+    D = grad_out.shape[-1]
+    contrib = grad_out[:, None, :].expand(N, L, D)
+    if weights is not None:
+        contrib = contrib * weights[..., None]
+    rows = indices.long()
+    if owned is not None:
+        rows = torch.where(owned, rows, n_rows)
+    grad = torch.ops.aten.embedding_dense_backward(
+        contrib.reshape(N * L, D), rows.reshape(-1), n_rows + 1, n_rows,
+        False)
+    return grad[:n_rows]
+
+
+def dot_interaction_grad(grad_out: torch.Tensor, feats: torch.Tensor,
+                         self_interaction: bool = False) -> torch.Tensor:
+    """The features' gradient of :func:`dot_interaction_ref`: the pair
+    gradients scattered into a (B, F, F) matrix G (the diagonal too with
+    ``self_interaction``), then ``(G + G^T) @ feats``."""
+    B, F, D = feats.shape
+    ij = torch.tril_indices(F, F, offset=0 if self_interaction else -1,
+                            device=feats.device)
+    G = torch.zeros((B, F, F), dtype=feats.dtype, device=feats.device)
+    G[:, ij[0], ij[1]] = grad_out
+    return torch.bmm(G + G.transpose(1, 2), feats)
+
+
 def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
                         ) -> torch.Tensor:
     """DLRM pairwise-dot interaction: (B, F, D) -> (B, P) packed lower

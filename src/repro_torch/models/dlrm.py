@@ -1,10 +1,15 @@
 """DLRM (paper Fig. 1 / Table I): bottom MLP -> PIFS embedding lookup ->
 pairwise-dot interaction -> top MLP -> CTR score.
 
-The port of ``repro.models.dlrm``'s serving half.  A batch is
+The port of ``repro.models.dlrm``: the serve step and the train step
+(:func:`loss_fn`, :func:`make_train_step`).  A batch is
 ``{"dense": (B, n_dense) f32, "indices": (B, T, L) int32, "weights":
-(B, T, L) f32 (optional)}`` with T tables and L lookups per bag, on the
-model's device.
+(B, T, L) f32 (optional), "labels": (B,) int32 (training)}`` with T
+tables and L lookups per bag, on the model's device.
+
+Training differentiates through the split front end (the masked_sls and
+dot_interaction kernels' autograd wrappers in ``kernels/ops.py``), as the
+reference's ``make_train_step`` does; the fused routes have no backward.
 
 A difference from the reference, kept knowingly: the reference's
 ``make_serve_step`` never forwards ``interaction_impl``
@@ -27,6 +32,8 @@ from repro_torch.core.pifs import PIFSEmbeddingEngine, engine_for_tables
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import MLP
+from repro_torch.models.params import joint_train_step
+from repro_torch.models.recsys import _bce
 
 
 def build_engine(cfg: DLRMConfig, device: DeviceLike = None,
@@ -112,6 +119,33 @@ def make_serve_step(model: DLRM, engine: PIFSEmbeddingEngine,
                        front_end=front_end, tiers=tiers, dedup=dedup)
         return torch.sigmoid(logits)
     return step
+
+
+def loss_fn(model: DLRM, engine: PIFSEmbeddingEngine, state,
+            batch: Dict[str, torch.Tensor], mode: str = "pifs",
+            impl: str = "cuda") -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    in the reference's stable form, ``max(z, 0) - z y + log1p(exp(-|z|))``,
+    through the split front end."""
+    return _bce(model(engine, state, batch, mode=mode, impl=impl),
+                batch["labels"])
+
+
+def make_train_step(model: DLRM, engine: PIFSEmbeddingEngine, optimizer,
+                    emb_optimizer, mode: str = "pifs", impl: str = "cuda"):
+    """Joint step: dense params via ``optimizer``, the embedding tiers via
+    ``emb_optimizer`` (row-wise adagrad by convention), in place
+    (``models.params.joint_train_step``): ``step(state, opt_state,
+    emb_opt_state, batch) -> (state, opt_state, emb_opt_state,
+    {"loss"})``.  The embedding gradient flows through the engine lookup
+    (gather -> scatter-add), dense over each tier as the reference's is.
+    pifs and pond (and beacon, pifs' datapath), any ``n_shards``; an int8
+    engine raises ``TypeError``."""
+    return joint_train_step(
+        model, engine,
+        lambda state, batch: loss_fn(model, engine, state, batch,
+                                     mode=mode, impl=impl),
+        optimizer, emb_optimizer)
 
 
 def params_from_numpy(tree: dict, device: Optional[DeviceLike] = None

@@ -26,7 +26,12 @@ Attention is plain matmuls, the reference's -1e30 causal mask, softmax and
 The reference's ``_constrain_full_batch`` (a sharding constraint for the
 dense towers) has no counterpart: one card holds every shard.  Nor do its
 lookup knobs ``dp_shard`` and ``block_l``: the port's lookup has neither.
-Training (``sasrec_loss``, ``loss_fn``, ``make_train_step``) is not here.
+
+Training: :func:`loss_fn` (SASRec's sampled next-item BCE, the CTR
+models' BCE) and :func:`make_train_step`, the reference's joint step,
+differentiating through the engine's lookups (``kernels/ops.py``'s
+autograd wrapper of masked_sls).  A training batch adds ``labels (B,)``,
+or for SASRec ``pos`` and ``neg (B, S)`` in place of ``target``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.configs.base import RecConfig
 from repro_torch.core.pifs import PIFSEmbeddingEngine, engine_for_tables
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import MLP
+from repro_torch.models.params import joint_train_step
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +319,47 @@ def forward(p: RecModel, engine, state, batch, offsets,
 
 
 # ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``, in its arithmetic."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    y = labels.to(torch.float32)
+    lg = logits.to(torch.float32)
+    return torch.mean(torch.clamp(lg, min=0) - lg * y
+                      + torch.log1p(torch.exp(-torch.abs(lg))))
+
+
+def sasrec_loss(p: RecModel, engine, state, batch, mode: str = "pifs",
+                impl: str = "cuda") -> torch.Tensor:
+    """Sampled next-item BCE (the paper's objective): positive = actual
+    next item, negative = a sampled item, scored by dot with the item
+    embedding; positions whose history id is 0 do not count."""
+    h = sasrec_encode(p, engine, state, batch["seq"], mode,
+                      impl=impl)                                # (B, S, D)
+    pos_e = _seq_lookup(engine, state, batch["pos"], 0, mode, impl=impl)
+    neg_e = _seq_lookup(engine, state, batch["neg"], 0, mode, impl=impl)
+    pos_s = torch.sum(h * pos_e, dim=-1)
+    neg_s = torch.sum(h * neg_e, dim=-1)
+    valid = (batch["seq"] > 0).to(torch.float32)
+    ls = (_softplus(-pos_s) + _softplus(neg_s)) * valid
+    return ls.sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def loss_fn(p: RecModel, engine, state, batch, offsets, mode: str = "pifs",
+            impl: str = "cuda") -> torch.Tensor:
+    if p.cfg.interaction == "self-attn-seq":
+        return sasrec_loss(p, engine, state, batch, mode, impl=impl)
+    logits = forward(p, engine, state, batch, offsets, mode, impl=impl)
+    return _bce(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
 # Retrieval: score a query against n_candidates explicit item ids
 # ---------------------------------------------------------------------------
 
@@ -360,6 +407,21 @@ def _device_offsets(model: RecModel, offsets) -> torch.Tensor:
     per step rather than once per lookup."""
     dev = next(model.parameters()).device
     return torch.as_tensor(np.asarray(offsets, np.int32), device=dev)
+
+
+def make_train_step(model: RecModel, engine: PIFSEmbeddingEngine,
+                    offsets: np.ndarray, optimizer, emb_optimizer,
+                    mode: str = "pifs", impl: str = "cuda"):
+    """The reference's joint step (``models.params.joint_train_step``):
+    ``step(state, opt_state, emb_opt_state, batch) -> (state, opt_state,
+    emb_opt_state, {"loss"})``, everything updated in place; an int8
+    engine raises ``TypeError``."""
+    offsets = _device_offsets(model, offsets)
+    return joint_train_step(
+        model, engine,
+        lambda state, batch: loss_fn(model, engine, state, batch, offsets,
+                                     mode=mode, impl=impl),
+        optimizer, emb_optimizer)
 
 
 def make_serve_step(model: RecModel, engine: PIFSEmbeddingEngine,
