@@ -197,7 +197,25 @@
    (``train_timing`` lines); and ``examples/train_dlrm.py`` on the card
    with its injected failure (one restart); launch and backward counts
    zeroed just before each kernel-path run and read just after
-   (``masked_sls`` and ``dot_interaction`` must have run).
+   (``masked_sls`` and ``dot_interaction`` must have run);
+15. LM phase: the LM family's serve path (``models.transformer``:
+   ``prefill_step``, ``decode_step``; no kernel) -- first the five reduced
+   LM configs in fp32, prefill and 4 decode steps on the card against the
+   port on the CPU from the same weights within 1e-5; then bf16 at the
+   published widths, llama3.2-3b and granite-moe-1b-a400m whole and
+   deepseek-v3-671b cut to 4 layers (each cut printed): a 64-token
+   ``lm_batches`` prompt fed through ``decode_step`` from a zero cache of
+   32,768 positions ends at ``prefill_step``'s logits (within
+   LM_BF16_TOL of their spread, top-1 equal or tied within it); llama's
+   bf16 prefill against an fp32 run of the same weights; the prefill
+   timed (seq 32,768, deepseek 4,096; batch 1); decode at pos 32,767 over
+   a cache drawn on the card (batch 8, deepseek 64) attends to every
+   position (layer 0 against a plain softmax over all of them, and the
+   logits move when position 0 alone changes); decode steps timed with
+   their bytes bound and device busy share; the prefill attention (beside
+   ``F.scaled_dot_product_attention``), the decode attention and the MoE
+   block timed alone; one ``lm`` JSON line per model, ``lm_timing``
+   lines.
 
 ``--only`` runs the build and the named phases alone, for a quicker look,
 and prints neither of the last two lines.
@@ -3808,8 +3826,446 @@ def train_phase(gen: torch.Generator) -> tuple:
     return lines, timing, launches, backwards
 
 
+# --------------------------------------------------------------- LM phase
+LM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "deepseek-v3-671b",
+            "deepseek-67b", "nemotron-4-340b")
+# (arch, layers kept, prefill seq, prefill batch, decode batch): the cuts
+# from prefill_32k (batch 32) and decode_32k (batch 128) that one card holds
+LM_RUNS = (("llama3.2-3b", None, 32768, 1, 8),
+           ("granite-moe-1b-a400m", None, 32768, 1, 8),
+           ("deepseek-v3-671b", 4, 4096, 1, 64))
+LM_CACHE = 32768         # decode_32k's positions
+LM_PROMPT = 64           # decode == prefill prompt, fed one token a step
+LM_FP32_SEQ = 4096       # llama's bf16 against fp32 prefill
+LM_DECODE_STEPS = 5
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 (tensor cores)
+# bf16 logits, decode against prefill and bf16 against fp32: both sides
+# round every product, norm and residual add to bf16 at other points (the
+# decode softmax stays fp32, prefill casts p to bf16 before PV); within
+# LM_BF16_TOL of the logits' own spread (their standard deviation).  A
+# random-weight model's top-1 can lead its runner-up over a 128k vocab by
+# less than that noise: the top-1 tokens must be equal or tied within it
+LM_BF16_TOL = 0.25
+
+
+def lm_cpu_checks() -> list:
+    """The reduced configs of all five LM ids, fp32: prefill (batch 2, 64
+    tokens of ``lm_batches``) and 4 decode steps on the card against the
+    port on the CPU from the same weights, within 1e-5 (TF32 off)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+
+    out = []
+    for arch in LM_ARCHS:
+        cfg = replace(reduced(get_config(arch)), dtype="float32")
+        cp = tr.init_params(cfg, seed=7, device="cpu")
+        gp = _tree_to(cp, "cuda")
+        toks = next(lm_batches(cfg, 2, LM_PROMPT, 1, seed=3))["tokens"]
+        errs = [_max_err(tr.prefill_step(gp, toks, cfg),
+                         tr.prefill_step(cp, toks, cfg))]
+        cc = tr.init_cache(cfg, 2, LM_PROMPT, device="cpu")
+        gc = tr.init_cache(cfg, 2, LM_PROMPT, device="cuda")
+        for t in range(4):
+            cl, cc = tr.decode_step(cp, cc, toks[:, t:t + 1], t, cfg)
+            gl, gc = tr.decode_step(gp, gc, toks[:, t:t + 1], t, cfg)
+            errs.append(_max_err(gl, cl))
+        errs.append(max(_max_err(gc[k], cc[k]) for k in cc))
+        check(max(errs) <= 1e-5, f"lm {arch} reduced fp32: card vs CPU max "
+                                 f"err {max(errs):.3e} > 1e-5")
+        out.append({"arch": arch, "card_vs_cpu_max_err": max(errs)})
+        print("lm_cpu " + json.dumps(out[-1]), flush=True)
+    return out
+
+
+def _tree_to(tree, device, dtype=None):
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device=device, dtype=dtype or v.dtype)
+            for k, v in tree.items()}
+
+
+def _max_err(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max())
+
+
+def _logit_diff(got, want) -> dict:
+    """Max |got - want| beside the spread of ``want``; whether each row's
+    top-1 token is equal, and whether it is tied within the tolerance
+    (``want``'s logit of ``got``'s top-1 within LM_BF16_TOL x spread of
+    ``want``'s max); ``want``'s smallest top-1 margin over its second."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    top2 = w.topk(2, dim=-1).values
+    std = float(w.std())
+    gi = g.argmax(-1, keepdim=True)
+    near = w.gather(-1, gi)[:, 0] >= top2[:, 0] - LM_BF16_TOL * std
+    return {"max_err": float((g - w).abs().max()), "std": std,
+            "top1_equal": bool((gi[:, 0] == w.argmax(-1)).all()),
+            "top1_within_tol": bool(near.all()),
+            "top1_margin": float((top2[:, 0] - top2[:, 1]).min())}
+
+
+def _attn_cost(b, H, sq, h, dv, itemsize) -> dict:
+    """A causal prefill attention (sq == skv): the valid (q, k) pairs'
+    products, q / k / v read and the output written once; bf16 operands at
+    the tensor cores' rate."""
+    pairs = b * H * sq * (sq + 1) // 2
+    nbytes = b * sq * H * (2 * h + 2 * dv) * itemsize
+    flops = 2 * pairs * (h + dv)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def _sdpa_ms(timer, q, k, v, **kw):
+    """``F.scaled_dot_product_attention`` on the same tensors."""
+    import torch.nn.functional as F
+    return timer(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
+
+
+def lm_model_run(arch, n_layers, seq, pb, db, gen, timer) -> dict:
+    """One full-width LM on the card: decode == prefill, (llama) bf16
+    against fp32, the timed prefill, the whole cache read, timed decode
+    steps with their device busy share, the prefill attention, the decode
+    attention and the MoE block timed alone."""
+    from dataclasses import replace
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.params import count_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cuts = [f"prefill batch {LM_SHAPES['prefill_32k'].global_batch} -> {pb}",
+            f"decode batch {LM_SHAPES['decode_32k'].global_batch} -> {db}"]
+    if seq != LM_SHAPES["prefill_32k"].seq_len:
+        cuts.append(f"prefill seq {LM_SHAPES['prefill_32k'].seq_len} -> "
+                    f"{seq}")
+    if n_layers is not None:
+        cuts.append(f"layers {cfg.n_layers} -> {n_layers}")
+        cuts.append(f"mtp_depth {cfg.mtp_depth} -> 0")
+        cfg = replace(cfg, n_layers=n_layers, mtp_depth=0)
+    print(f"lm {arch}: cuts {cuts}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    specs = tr.model_specs(cfg)
+    n_params = count_params(specs)
+    t = time.perf_counter()
+    params = tr.init_params(cfg, seed=11, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    wbytes = n_params * 2
+    line = {"arch": arch, "card": smi(), "layers": cfg.n_layers,
+            "params": n_params, "weights_gb": wbytes / 1e9,
+            "init_s": init_s, "cuts": cuts}
+    S = LM_CACHE
+
+    # -- decode == prefill: a prompt fed one position at a time
+    prompt = next(lm_batches(cfg, 1, LM_PROMPT, 1, seed=1))["tokens"]
+    cache = tr.init_cache(cfg, 1, S, device="cuda")
+    for t_ in range(LM_PROMPT):
+        dl, cache = tr.decode_step(params, cache, prompt[:, t_:t_ + 1], t_,
+                                   cfg)
+    pl = tr.prefill_step(params, prompt, cfg)
+    check(dl.shape == pl.shape == (1, 1, cfg.vocab),
+          f"lm {arch}: logits {tuple(dl.shape)} / {tuple(pl.shape)}")
+    check(bool(torch.isfinite(dl).all() and torch.isfinite(pl).all()),
+          f"lm {arch}: non-finite logits")
+    for k, (shape, dt) in tr.cache_specs(cfg, 1, S).items():
+        check(tuple(cache[k].shape) == shape and cache[k].dtype == dt,
+              f"lm {arch}: cache {k} {tuple(cache[k].shape)}")
+    check(not any(cache[k][:, :, LM_PROMPT:].any() for k in cache),
+          f"lm {arch}: decode wrote past its positions")
+    dp = _logit_diff(dl, pl)
+    line["decode_vs_prefill"] = dp
+    print(f"lm {arch}: decode vs prefill {dp}", flush=True)
+    check(dp["max_err"] <= LM_BF16_TOL * dp["std"],
+          f"lm {arch}: decode vs prefill max err {dp['max_err']:.4f} > "
+          f"{LM_BF16_TOL} x std {dp['std']:.4f}")
+    check(dp["top1_within_tol"],
+          f"lm {arch}: decode's top-1 is not prefill's within the tolerance "
+          f"(prefill's margin {dp['top1_margin']:.4f})")
+    del cache, dl, pl
+
+    # -- llama: bf16 against fp32 weights of the same values (the warmup
+    # of the long prefill too)
+    if arch == "llama3.2-3b":
+        toks = next(lm_batches(cfg, 1, LM_FP32_SEQ, 1, seed=2))["tokens"]
+        bl = tr.prefill_step(params, toks, cfg)
+        p32 = _tree_to(params, "cuda", torch.float32)
+        fl = tr.prefill_step(p32, toks, replace(cfg, dtype="float32"))
+        del p32
+        torch.cuda.empty_cache()
+        bf = _logit_diff(bl, fl)
+        line["bf16_vs_fp32"] = dict(bf, seq=LM_FP32_SEQ)
+        print(f"lm {arch}: bf16 vs fp32 prefill {bf}", flush=True)
+        check(bf["max_err"] <= LM_BF16_TOL * bf["std"],
+              f"lm {arch}: bf16 vs fp32 max err {bf['max_err']:.4f} > "
+              f"{LM_BF16_TOL} x std {bf['std']:.4f}")
+
+    # -- the timed prefill
+    toks = next(lm_batches(cfg, pb, seq, 1, seed=3))["tokens"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = tr.prefill_step(params, toks, cfg)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    check(tuple(logits.shape) == (pb, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"lm {arch}: prefill logits {tuple(logits.shape)}")
+    line.update(prefill_seq=seq, prefill_batch=pb, prefill_ms=pre_s * 1e3,
+                prefill_tok_s=pb * seq / pre_s)
+    del logits
+
+    # -- the decode cache: every position drawn on the card
+    cache = tr.init_cache(cfg, db, S, device="cuda")
+    for v in cache.values():
+        v.normal_(generator=gen)
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    dtoks = torch.randint(0, cfg.vocab, (db, 1), generator=gen,
+                          device="cuda")
+    stats = {}
+    dl, cache = tr.decode_step(params, cache, dtoks, S - 1, cfg, stats)
+    check(tuple(dl.shape) == (db, 1, cfg.vocab)
+          and bool(torch.isfinite(dl).all()),
+          f"lm {arch}: decode logits {tuple(dl.shape)} at pos {S - 1}")
+    # the whole cache is read: layer 0's attention at pos S - 1 against a
+    # plain softmax over every position, and the step's logits move when
+    # only position 0 of every layer changes
+    whole = lm_whole_cache_check(params, cache, dtoks, cfg)
+    first = {k: v[:, :, 0].clone() for k, v in cache.items()}
+    for v in cache.values():
+        v[:, :, 0] = 4.0
+    dl2, _ = tr.decode_step(params, cache, dtoks, S - 1, cfg)
+    for k, v in cache.items():
+        v[:, :, 0] = first[k]
+    moved = _max_err(dl2, dl)
+    check(moved > 0, f"lm {arch}: decode at pos {S - 1} ignores position 0")
+    line["whole_cache"] = dict(whole, logits_moved_by_pos0=moved)
+    print(f"lm {arch}: whole cache read {line['whole_cache']}", flush=True)
+
+    # -- timed decode steps (host clock to a synchronize) and busy share
+    step_ms = []
+    for _ in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.decode_step(params, cache, dtoks, S - 1, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(step_ms)
+    n_moe = tr._layer_split(cfg)[1]
+    expert_bytes = 0
+    if n_moe:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert * 2
+        hit = stats["experts_hit"]
+        expert_bytes = sum(m.n_experts - h for h in hit) * per_expert
+    # weights read: all but the embedding (b rows of it) and the experts
+    # no token chose
+    d = cfg.d_model
+    read = (wbytes - cfg.vocab * d * 2 + db * d * 2 - expert_bytes
+            + cache_bytes)
+    busy = device_busy(
+        lambda st, bt: tr.decode_step(params, cache, bt, S - 1, cfg),
+        None, dtoks, med, reps=3)
+    line.update(decode_batch=db, decode_cache=S, decode_ms=med,
+                decode_step_ms=step_ms, decode_tok_s=db / med * 1e3,
+                decode_bytes=read, cache_gb=cache_bytes / 1e9,
+                decode_bound_ms=read / HBM_BYTES_PER_S * 1e3,
+                experts_hit=stats.get("experts_hit"), **busy)
+    del dl, dl2, first
+
+    # -- device code timed alone: prefill attention, decode attention, MoE
+    rows = lm_code_rows(arch, cfg, params, cache, seq, pb, db, gen, timer)
+    del cache, params
+    torch.cuda.empty_cache()
+    line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    line["seconds"] = time.perf_counter() - t0
+    return {"line": line, "rows": rows}
+
+
+def lm_whole_cache_check(params, cache, dtoks, cfg) -> dict:
+    """Layer 0's decode attention at pos S - 1 over the filled cache
+    against a plain fp32 softmax over all S positions (no mask)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import rms_norm
+    key = "dense_layers" if "dense_layers" in params else "moe_layers"
+    lp = tr._layer(params[key], 0)["attn"]
+    x = tr.embed_tokens(params, dtoks, cfg).to(tr.cfg_dtype(cfg))
+    h = rms_norm(x, tr._layer(params[key], 0)["attn_norm"], cfg.norm_eps)
+    b, S = dtoks.shape[0], LM_CACHE
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        q_nope, q_rope, _, _ = attn._mla_qkv(
+            lp, h, cfg, attn._pos(S - 1, h.device))
+        wuk = lp["wukv"].reshape(m.kv_lora_rank, cfg.n_heads, -1)[
+            :, :, :m.qk_nope_head_dim]
+        q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
+                             wuk.float())
+        scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+        ckv, kr = cache["ckv"][0].float(), cache["kr"][0].float()
+        got = attn.mla_decode_core(q_abs, q_rope[:, 0], cache["ckv"][0],
+                                   cache["kr"][0], S - 1, scale)
+        s = (q_abs @ ckv.transpose(1, 2)
+             + q_rope[:, 0].float() @ kr.transpose(1, 2)) * scale
+        want = torch.softmax(s, -1) @ ckv
+    else:
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = attn.apply_rope((h @ lp["wq"]).reshape(b, 1, H, hd),
+                            attn._pos(S - 1, h.device), cfg.rope_theta
+                            ).reshape(b, K, H // K, hd)
+        got = attn.gqa_decode_core(q, cache["k"][0], cache["v"][0], S - 1,
+                                   hd ** -0.5)
+        k = cache["k"][0].float().permute(0, 2, 3, 1)
+        v = cache["v"][0].float().permute(0, 2, 1, 3)
+        want = torch.softmax((q.float() @ k) * hd ** -0.5, -1) @ v
+    err = _max_err(got, want)
+    check(err <= 1e-5, f"lm whole cache: decode attention vs a softmax over "
+                       f"all {S} positions: max err {err:.3e}")
+    return {"layer0_attn_vs_full_softmax": err, "positions": S}
+
+
+def lm_code_rows(arch, cfg, params, cache, seq, pb, db, gen, timer
+                 ) -> list:
+    """The LM path's device code timed alone (CUDA events, dirty L2,
+    median) on layer 0's weights and inputs drawn at the path's shapes:
+    ``flash_attention`` at the prefill shape beside
+    ``F.scaled_dot_product_attention`` (causal, same tensors); the decode
+    attention core over the whole cache at pos S - 1 (GQA: beside SDPA
+    with ``enable_gqa``); the MoE block at the decode and prefill
+    shapes."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    rows = []
+    bf = torch.bfloat16
+    H, S = cfg.n_heads, LM_CACHE
+
+    def row(name, ms, cost, library_ms, calls, **kw):
+        r = {"name": name, "arch": arch, "ms": ms, "plain_ms": ms,
+             "library_ms": library_ms, "calls_per_step": calls, **cost, **kw}
+        rows.append(r)
+        print("lm_timing " + json.dumps(r), flush=True)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # prefill attention, the flat-head layout the layers pass it
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        h, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    else:
+        h = dv = cfg.head_dim
+    q, k, v = randn(pb, seq, H, h), randn(pb, seq, H, h), randn(pb, seq, H, dv)
+    scale = h ** -0.5
+    ms = timer(lambda: attn.flash_attention(q, k, v, scale=scale))
+    lib = _sdpa_ms(timer, q.transpose(1, 2), k.transpose(1, 2),
+                   v.transpose(1, 2), is_causal=True, scale=scale)
+    row("flash_attention", ms, _attn_cost(pb, H, seq, h, dv, 2), lib,
+        cfg.n_layers, shape=f"q/k ({pb}, {seq}, {H}, {h}), v dv {dv}, "
+                            "causal, bf16")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # decode attention over the whole cache (layer 0's slice)
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+        q_abs, q_rope = randn(db, H, r, dtype=torch.float32), randn(db, H, dr)
+        ckv, kr = cache["ckv"][0], cache["kr"][0]
+        ms = timer(lambda: attn.mla_decode_core(q_abs, q_rope, ckv, kr,
+                                                S - 1, scale))
+        nbytes = ((ckv.numel() + kr.numel()) * 2 + q_abs.numel() * 4
+                  + q_rope.numel() * 2 + db * H * r * 4)
+        flops = 2 * db * H * S * (2 * r + dr)
+        row("mla_decode_core", ms, bound(nbytes, flops), None, cfg.n_layers,
+            shape=f"batch {db}, {S} positions, latent {r} + rope {dr}, "
+                  f"{H} heads; library none: no one call scores a split "
+                  "latent key")
+    else:
+        K, hd = cfg.n_kv_heads, cfg.head_dim
+        G = H // K
+        qd = randn(db, K, G, hd)
+        kc, vc = cache["k"][0], cache["v"][0]
+        ms = timer(lambda: attn.gqa_decode_core(qd, kc, vc, S - 1,
+                                                hd ** -0.5))
+        nbytes = (kc.numel() + vc.numel() + qd.numel()) * 2 + qd.numel() * 4
+        flops = 4 * db * H * S * hd
+        lib = _sdpa_ms(timer, qd.reshape(db, H, 1, hd), kc.permute(0, 2, 1, 3),
+                       vc.permute(0, 2, 1, 3), enable_gqa=True)
+        row("gqa_decode_core", ms, bound(nbytes, flops), lib, cfg.n_layers,
+            shape=f"batch {db}, {S} positions, {K} kv heads x {G}, h {hd}")
+
+    # the MoE block (routing, expert loop, combine; shared expert)
+    n_dense, n_moe = tr._layer_split(cfg)
+    if n_moe:
+        mp = tr._layer(params["moe_layers"], 0)["moe"]
+        mc = cfg.moe
+        d, f = cfg.d_model, mc.d_ff_expert
+        for tag, shape in (("decode", (db, 1, d)), ("prefill", (pb, seq, d))):
+            x = randn(*shape)
+            st = {}
+            moe_mod.moe_apply(mp, x, cfg, st)
+            ms = timer(lambda: moe_mod.moe_apply(mp, x, cfg))
+            n = shape[0] * shape[1]
+            hit = st["experts_hit"][0]
+            fs = f * mc.n_shared_experts
+            nbytes = (hit * 3 * d * f + 3 * d * fs) * 2 + d * mc.n_experts * 4 \
+                + 2 * x.numel() * 2
+            flops = 2 * 3 * d * f * n * mc.top_k + 2 * 3 * d * fs * n \
+                + 2 * d * mc.n_experts * n
+            c = bound(nbytes, 0)
+            to = flops / BF16_FLOPS_PER_S * 1e3
+            if to > c["bound_ms"]:
+                c = dict(c, bound_ms=to, bound_by="operations")
+            c["flops"] = int(flops)
+            row(f"moe_apply/{tag}", ms, c, None, n_moe,
+                shape=f"{n} tokens x top {mc.top_k} of {mc.n_experts} "
+                      f"experts ({hit} hit), d {d}, f {f}, shared {fs}; "
+                      "library none")
+            del x
+    return rows
+
+
+def lm_phase(gen: torch.Generator) -> tuple:
+    """Phase 15: the LM family's serve path (``models.transformer``), bf16
+    at published widths: llama3.2-3b and granite-moe-1b-a400m whole,
+    deepseek-v3-671b cut to 4 layers (3 dense + the first MoE layer, MTP
+    cut).  Per model (:func:`lm_model_run`): a 64-token ``lm_batches``
+    prompt fed through ``decode_step`` from a zero cache of 32,768
+    positions ends at ``prefill_step``'s logits (within LM_BF16_TOL of
+    their spread, top-1 equal); llama's bf16 prefill against the same
+    weights in fp32; the timed prefill (seq 32,768, deepseek 4,096; batch
+    1); decode at pos 32,767 over a cache drawn on the card (batch 8,
+    deepseek 64) reads every position; timed decode steps with their bytes
+    bound and device busy share; the prefill attention, decode attention
+    and MoE block timed alone.  First, :func:`lm_cpu_checks`.  Kernel
+    launch counts are zeroed before and read after: no kernel is on this
+    path."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.reset_launches()
+    cpu = lm_cpu_checks()
+    timer = Timer(reps=5)
+    lines, rows = [], []
+    for arch, n_layers, seq, pb, db in LM_RUNS:
+        r = lm_model_run(arch, n_layers, seq, pb, db, gen, timer)
+        lines.append(r["line"])
+        rows += r["rows"]
+        print("lm " + json.dumps(lines[-1]), flush=True)
+        torch.cuda.empty_cache()
+    del timer
+    torch.cuda.empty_cache()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{launches} (none on this path)", flush=True)
+    return cpu, lines, rows
+
+
 PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
-          "recsys", "paper", "train")
+          "recsys", "paper", "train", "lm")
 
 
 def main(argv=None) -> None:
@@ -3860,7 +4316,8 @@ def main(argv=None) -> None:
                "faults": faults_phase,
                "recsys": lambda: recsys_phase(gen),
                "paper": lambda: paper_phase(gen),
-               "train": lambda: train_phase(gen)}
+               "train": lambda: train_phase(gen),
+               "lm": lambda: lm_phase(gen)}
         for p in only:
             run[p]()
             torch.cuda.empty_cache()
@@ -3885,6 +4342,8 @@ def main(argv=None) -> None:
     _, _, paper_launches = paper_phase(gen)
     torch.cuda.empty_cache()
     _, _, train_launches, _ = train_phase(gen)
+    torch.cuda.empty_cache()
+    lm_phase(gen)
     torch.cuda.empty_cache()
     for d in details:
         print("timing " + json.dumps(d), flush=True)

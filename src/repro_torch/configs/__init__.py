@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
-    Config, DLRMConfig, REC_SHAPES, RecConfig, RecShape, get_config,
-    list_archs, reduced, reduced_shape, register,
+    Config, DLRMConfig, LM_SHAPES, LMConfig, LMShape, MLAConfig, MoEConfig,
+    REC_SHAPES, RecConfig, RecShape, get_config, list_archs, reduced,
+    reduced_shape, register,
 )

@@ -1,16 +1,34 @@
 """Configs, the architecture registry and the CPU-smoke shrinks.
 
-A copy of the DLRM and recsys parts of ``repro.configs.base``:
+A copy of the DLRM, recsys and LM parts of ``repro.configs.base``:
 ``get_config(name)`` resolves a registry id (the ``--arch`` string),
 ``reduced(cfg)`` shrinks a config to something a CPU test runs in seconds,
-``reduced_shape`` does the same for a ``RecShape``.  The LM and GNN
-families are not registered here (``ROADMAP.md`` queue 1 item 17): their
-ids raise ``KeyError``.
+``reduced_shape`` does the same for a ``RecShape`` or an ``LMShape``.  The
+GNN family is not registered here (``ROADMAP.md`` queue 1 item 17): its id
+raises ``KeyError``; nor is the dry-run's ``iter_cells``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+
+@dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+    subquadratic_only: bool = False
+
+
+LM_SHAPES: Dict[str, LMShape] = {
+    "train_4k": LMShape("train_4k", "train", 4096, 256),
+    "prefill_32k": LMShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": LMShape("decode_32k", "decode", 32768, 128),
+    "long_500k": LMShape("long_500k", "decode", 524288, 1,
+                         subquadratic_only=True),
+}
 
 
 @dataclass(frozen=True)
@@ -76,7 +94,60 @@ class DLRMConfig:
         return REC_SHAPES
 
 
-Config = Union[DLRMConfig, RecConfig]
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0      # deepseek-v3: first 3 layers are dense
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-2
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    family: str = "lm"
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    attn_type: str = "gqa"           # "gqa" | "mla"
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    activation: str = "silu_glu"     # "silu_glu" | "relu2"
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    mtp_depth: int = 0               # deepseek-v3 multi-token prediction
+    # the reference's training knobs, kept so the configs compare equal
+    remat: str = "full"
+    train_accum: int = 1
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def shapes(self) -> Dict[str, LMShape]:
+        return LM_SHAPES
+
+
+Config = Union[DLRMConfig, RecConfig, LMConfig]
 
 _REGISTRY: Dict[str, Config] = {}
 
@@ -91,7 +162,8 @@ def register(cfg: Config) -> Config:
 def _ensure_loaded() -> None:
     # import side-effect registration
     from repro_torch.configs import (  # noqa: F401
-        autoint, bst, dcn_v2, rmc, sasrec)
+        autoint, bst, dcn_v2, deepseek_67b, deepseek_v3_671b,
+        granite_moe_1b_a400m, llama3_2_3b, nemotron_4_340b, rmc, sasrec)
 
 
 def get_config(name: str) -> Config:
@@ -113,9 +185,25 @@ def list_archs(assigned_only: bool = True) -> List[str]:
 
 def reduced(cfg: Config) -> Config:
     """Shrink a config to something a CPU smoke test can run in seconds."""
+    if isinstance(cfg, LMConfig):
+        kw: Dict[str, Any] = dict(
+            n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+            vocab=512, d_head=16, rope_theta=10000.0,
+            mtp_depth=min(cfg.mtp_depth, 1), train_accum=1)
+        if cfg.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                  qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                  v_head_dim=16)
+            kw["d_head"] = 0
+        if cfg.moe is not None:
+            kw["moe"] = replace(
+                cfg.moe, n_experts=4, top_k=2, d_ff_expert=32,
+                n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+                first_dense_layers=min(cfg.moe.first_dense_layers, 1))
+        return replace(cfg, **kw)
     if isinstance(cfg, RecConfig):
         vocabs = tuple(min(v, 100) for v in cfg.vocab_sizes)
-        kw: Dict[str, Any] = dict(vocab_sizes=vocabs, embed_dim=8)
+        kw = dict(vocab_sizes=vocabs, embed_dim=8)
         if cfg.mlp_dims:
             kw["mlp_dims"] = tuple(min(d, 32) for d in cfg.mlp_dims)
         if cfg.seq_len:
@@ -129,8 +217,12 @@ def reduced(cfg: Config) -> Config:
     raise TypeError(f"unknown config type {type(cfg)}")
 
 
-def reduced_shape(shape: RecShape) -> RecShape:
+def reduced_shape(shape: Union[RecShape, LMShape]
+                  ) -> Union[RecShape, LMShape]:
     """Shrink a shape descriptor for smoke tests."""
+    if isinstance(shape, LMShape):
+        return replace(shape, seq_len=min(shape.seq_len, 64),
+                       global_batch=min(shape.global_batch, 4))
     if isinstance(shape, RecShape):
         return replace(shape, batch=min(shape.batch, 16),
                        n_candidates=(min(shape.n_candidates, 64)

@@ -1,15 +1,16 @@
-"""Synthetic click and recsys streams: copies of ``repro.data.synth``'s
-``dlrm_batches``, ``_padded_rows``, ``rec_batches`` and ``_zipf_ids``, so
-both packages draw the same batches and requests from the same seed, bit
-for bit.  Host-side numpy; ``data/pipeline.py`` puts batches on a device.
-The LM and graph generators belong to ``ROADMAP.md`` queue 1 item 17."""
+"""Synthetic click, recsys and LM token streams: copies of
+``repro.data.synth``'s ``dlrm_batches``, ``_padded_rows``, ``rec_batches``,
+``lm_batches`` and ``_zipf_ids``, so both packages draw the same batches
+and requests from the same seed, bit for bit.  Host-side numpy;
+``data/pipeline.py`` puts batches on a device.  The graph generators
+belong to ``ROADMAP.md`` queue 1 item 17."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import DLRMConfig, RecConfig
+from repro_torch.configs.base import DLRMConfig, LMConfig, RecConfig
 from repro_torch.data.traces import TraceConfig, TraceGenerator
 
 
@@ -77,6 +78,20 @@ def rec_batches(cfg: RecConfig, batch: int, n_batches: int, seed: int = 0,
             if kind == "train":
                 b["labels"] = rng.integers(0, 2, batch).astype(np.int32)
         yield b
+
+
+def lm_batches(cfg: LMConfig, batch: int, seq: int, n_batches: int,
+               seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-ish token stream: unigram zipf + short-range repetition, so a
+    model trained a few hundred steps shows a visibly decreasing loss."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n_batches):
+        toks = _zipf_ids(rng, cfg.vocab, (batch, seq + 1), alpha=1.1)
+        # inject copy structure: 25% of positions repeat t-2
+        rep = rng.random((batch, seq + 1)) < 0.25
+        toks[:, 2:] = np.where(rep[:, 2:], toks[:, :-2], toks[:, 2:])
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
 
 
 def _zipf_ids(rng: np.random.Generator, vocab: int, shape: Tuple[int, ...],

@@ -368,8 +368,9 @@ def serve(binding: ServeBinding, step, requests: Sequence[Request],
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="rmc1",
-                    help="registry id: rmc1-4 or "
-                         + ", ".join(list_archs()))
+                    help="registry id: rmc1-4 or " + ", ".join(
+                        a for a in list_archs()
+                        if get_config(a).family == "recsys"))
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced "
                          "config of CPU smoke tests)")
@@ -432,6 +433,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "lm":
+        ap.error(f"--arch {args.arch}: an LM is served through "
+                 "repro_torch.models.transformer (prefill_step, "
+                 "decode_step), not the request runtime")
     if not args.full:
         cfg = reduced(cfg)
     load = LoadConfig(

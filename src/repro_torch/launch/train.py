@@ -6,9 +6,10 @@ joint train step (``models.dlrm`` / ``models.recsys``
 ``make_train_step``) -> metrics.  On the card unless ``--device cpu``;
 the *reduced* config by default, the published widths with ``--full``.
 The reference CLI binds tp = ``min(4, devices)``, one shard on one card;
-so does this, with no ``--tp`` (as the serve CLI).  The LM and GNN
-families are ``ROADMAP.md`` queue 1 item 17: their ids raise
-``NotImplementedError``.
+so does this, with no ``--tp`` (as the serve CLI).  LM training and the
+GNN family are ``ROADMAP.md`` queue 1 item 17: their ids raise
+``NotImplementedError`` (the LM family serves through
+``models.transformer``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from repro_torch.models import recsys as rec_mod
 from repro_torch.models.params import initialize
 from repro_torch.optim.optimizers import adam, rowwise_adagrad
 
-# the reference's LM and GNN ids (repro/configs/*.py): queue 1 item 17
+# the reference's LM and GNN ids (repro/configs/*.py), whose training is
+# queue 1 item 17
 ITEM17_ARCHS = ("llama3.2-3b", "deepseek-67b", "deepseek-v3-671b",
                 "nemotron-4-340b", "granite-moe-1b-a400m",
                 "graphsage-reddit")
@@ -136,8 +138,8 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
 
     if args.arch in ITEM17_ARCHS:
         raise NotImplementedError(
-            f"--arch {args.arch}: the LM and GNN families are not ported "
-            "yet (ROADMAP.md queue 1 item 17)")
+            f"--arch {args.arch}: LM training and the GNN family are not "
+            "ported yet (ROADMAP.md queue 1 item 17)")
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced(cfg)

@@ -1,10 +1,50 @@
-"""Common layers: the plain MLP tower of the recsys / DLRM models."""
+"""Common layers: the plain MLP tower of the recsys / DLRM models, and the
+LM family's RMS norm, activations and FFN (functions over param dicts, as
+in ``repro.models.layers``).  The reference's ``ffn_apply_sharded`` (the
+Megatron-SP FFN in a ``shard_map``) computes :func:`ffn_apply`'s function
+on one card, so it has no port."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """In fp32, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * w.float()).to(x.dtype)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+_ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu, "relu": torch.relu, "relu2": _relu2, "gelu": _gelu}
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name not in _ACTIVATIONS:
+        raise ValueError(name)
+    return _ACTIVATIONS[name]
+
+
+def ffn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str
+              ) -> torch.Tensor:
+    """Gated (``silu_glu``: gate / up / down) or plain (``in`` / ``out``)
+    FFN, plain matmuls in the weights' dtype."""
+    if act == "silu_glu":
+        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return activation(act)(x @ p["in"]) @ p["out"]
 
 
 class MLP(nn.Module):
