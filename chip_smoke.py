@@ -215,7 +215,40 @@
    their bytes bound and device busy share; the prefill attention (beside
    ``F.scaled_dot_product_attention``), the decode attention and the MoE
    block timed alone; one ``lm`` JSON line per model, ``lm_timing``
-   lines.
+   lines;
+16. LM train phase: the LM family's train path (``models.transformer.
+   make_train_step``, adafactor, remat "dots", the differentiable flash
+   attention; no kernel) -- first the five reduced LM configs in fp32,
+   one train step on the card against the port on the CPU from the same
+   weights and batch (deepseek-v3 reduced keeps MTP and MoE); then bf16
+   at train_4k's seq 4096, batch cut 256 -> 2: llama3.2-3b and
+   granite-moe-1b-a400m whole, deepseek-v3-671b at its widths with 3
+   dense layers and no MTP (each cut printed): 4 adafactor steps (lr
+   1e-5) on one repeated ``lm_batches`` batch (finite, the loss falls),
+   timed, tokens/s, the
+   busy share of a step and peak memory; the flash backward against
+   autograd through a plain masked softmax at layer 0's shapes; remat
+   "full" against "none" on a 2-layer cut; llama's gradient against a
+   central difference of the loss (fp32, 2 layers) and its accum=2
+   against accum=1; the flash forward + backward beside SDPA's, llama's adafactor
+   update beside its bytes bound and its cross-entropy beside
+   ``F.cross_entropy``, granite's MoE block forward + backward; and
+   ``train_lm`` with a checkpoint directory on granite (cut to 2 layers):
+   4 steps against 2 steps resumed to 4, the last checkpoints byte for
+   byte; ``lm_train_cpu``, ``lm_train``, ``lm_train_timing``,
+   ``lm_train_ckpt`` lines;
+17. GNN phase: graphsage-reddit (fp32; no kernel) -- first the reduced
+   config's three regimes, forward and one adam step, card against CPU;
+   then ``GNN_SHAPES`` at their sizes: Cora full batch (chunked against
+   one-chunk aggregation and pad edges inert, within 1e-5), ogbn-products
+   full batch (2,449,029 nodes, 61,859,140 edges) and Reddit's
+   fanout-sampled minibatch (232,965 nodes, 114,615,892 edges; its CSR
+   sampled on the host), both graphs drawn on the card, and 128
+   molecules; 4 adam steps each on one batch (finite, the loss falls),
+   timed, edges per second, peak memory; the aggregation alone at
+   ogbn-products beside its bytes bound and ``torch.sparse.mm``; and
+   ``launch.train --arch graphsage-reddit`` (reduced and ``--full``);
+   ``gnn_cpu``, ``gnn``, ``gnn_timing``, ``gnn_cli`` lines.
 
 ``--only`` runs the build and the named phases alone, for a quicker look,
 and prints neither of the last two lines.
@@ -4264,8 +4297,859 @@ def lm_phase(gen: torch.Generator) -> tuple:
     return cpu, lines, rows
 
 
+# --------------------------------------------------------- LM train phase
+# (arch, layers kept, batch): train_4k's seq 4096, batch cut from 256.
+# deepseek-v3's 4-layer serving cut cannot take a train step on one 80 GB
+# card (its MoE layer is 11.5 B parameters, 46 GB with its bf16 gradient,
+# plus adafactor's fp32 temporaries of whole leaves): 3 dense layers,
+# MTP cut
+LMT_RUNS = (("llama3.2-3b", None, 2),
+            ("granite-moe-1b-a400m", None, 2),
+            ("deepseek-v3-671b", 3, 2))
+LMT_SEQ = 4096
+LMT_STEPS = 4            # on one repeated batch: the loss must fall
+LMT_LR = 3e-3            # train_lm's adafactor
+# the full-width steps' adafactor.  Its steps are absolute (lr x an update
+# of RMS <= 1, not scaled by the parameter's RMS), so one step moves a
+# d-wide layer's output by ~lr x d x its input: on one batch llama's loss
+# went 12.18, 11.11, 21.06, 15.23 at train_lm's 3e-3, 12.18, 15.38, 14.26,
+# 14.71 at 3e-4, and 12.18, 10.88, 11.10, 10.60 at 1e-5 (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+LMT_STEP_LR = 1e-5
+# bf16: accum=2 sums two bf16 microbatch gradients, each from activations
+# rounded at other batch shapes: the gradient tree within 2^-5 relative
+# (Frobenius), the loss within 2^-7; flash's backward rounds p to bf16
+# before dV and its inputs are bf16: within 2^-6 of autograd through a
+# plain fp32 softmax; remat "full" recomputes the same ops: within 2^-8
+LMT_ACCUM_TOL, LMT_LOSS_TOL = 2 ** -5, 2 ** -7
+LMT_FLASH_TOL, LMT_REMAT_TOL = 2 ** -6, 2 ** -8
+LMT_CKPT_LAYERS = 2      # the resume check's granite cut (see lm_train_ckpt)
+LMT_PLAIN_BYTES = 48e9   # the flash check's plain softmax: its seq halves
+                         # until its fp32 tiles fit (deepseek: 2048)
+# the gradient at width: a central difference of the fp32 loss along a
+# random unit direction, step 0.1, against g.d; the loss (~12) keeps ~7
+# significant digits, so the difference (~1e-4) is good to ~1 %
+LMT_FD_EPS, LMT_FD_TOL = 0.1, 0.05
+
+
+class _GradCapture:
+    """An optimizer that keeps the gradients and changes nothing."""
+    init = staticmethod(lambda params: {})
+
+    @staticmethod
+    def update(grads, state, params):
+        from repro_torch.models import transformer as tr
+        state["grads"] = dict(tr.tree_leaves(grads))
+        return params, state
+
+
+def _rel_fro(got: dict, want: dict) -> float:
+    """Relative Frobenius error over a whole gradient tree."""
+    num = den = 0.0
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _leaf_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def lm_train_cpu_checks() -> list:
+    """The five reduced LM configs, fp32: one ``make_train_step``
+    (adafactor, remat "dots") on the card against the port on the CPU from
+    the same weights and batch: the loss and ``grad_norm`` within 1e-5
+    relative, the parameters within 1e-5 (adafactor's first step moves a
+    weight by about lr x the sign of its gradient: a gradient at the noise
+    level may flip it, so at most 1e-4 of the elements may differ, by at
+    most 2 lr).  deepseek-v3 reduced keeps MTP and MoE."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.optimizers import adafactor
+
+    out = []
+    for arch in LM_ARCHS:
+        cfg = replace(reduced(get_config(arch)), dtype="float32")
+        cp = tr.init_params(cfg, seed=7, device="cpu")
+        gp = _tree_to(cp, "cuda")
+        b = next(lm_batches(cfg, 4, 64, 1, seed=3))
+        res = {}
+        for dev, p in (("cpu", cp), ("cuda", gp)):
+            o = adafactor(lr=LMT_LR)
+            st = o.init(p)
+            _, _, m = tr.make_train_step(cfg, o)(p, st, b)
+            res[dev] = {k: float(v) for k, v in m.items()}
+        loss_err = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(
+            res["cpu"]["loss"])
+        gn_err = abs(res["cuda"]["grad_norm"] - res["cpu"]["grad_norm"]) / \
+            res["cpu"]["grad_norm"]
+        worst, far, n = 0.0, 0, 0
+        for (k, a), (_, c) in zip(tr.tree_leaves(gp), tr.tree_leaves(cp)):
+            d = (a.cpu() - c).abs()
+            worst = max(worst, float(d.max()))
+            far += int((d > 1e-5).sum())
+            n += d.numel()
+        line = {"arch": arch, "mtp_depth": cfg.mtp_depth,
+                "moe": cfg.moe is not None, "loss_rel_err": loss_err,
+                "grad_norm_rel_err": gn_err, "param_max_err": worst,
+                "param_far_share": far / n}
+        check(loss_err <= 1e-5 and gn_err <= 1e-5,
+              f"lm_train {arch} reduced: card vs CPU loss {loss_err:.2e}, "
+              f"grad_norm {gn_err:.2e} > 1e-5")
+        check(worst <= 2 * LMT_LR + 1e-6 and far / n <= 1e-4,
+              f"lm_train {arch} reduced: params max err {worst:.2e}, "
+              f"{far} of {n} beyond 1e-5")
+        out.append(line)
+        print("lm_train_cpu " + json.dumps(line), flush=True)
+    return out
+
+
+def _flash_cost(b, H, s, h, dv, itemsize) -> dict:
+    """A causal flash attention's forward and backward (sq == skv): the
+    valid pairs' products (forward s and PV; backward s again, dP, dV, dQ,
+    dK), q / k / v / out / dout read once and dq / dk / dv written once;
+    bf16 operands at the tensor cores' rate."""
+    pairs = b * H * s * (s + 1) // 2
+    nbytes = b * s * H * (3 * h + 3 * dv) * itemsize + b * H * s * 4
+    flops = 2 * pairs * (h + dv) + 2 * pairs * (3 * h + 2 * dv)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def lm_flash_check(cfg, b, gen) -> dict:
+    """``flash_attention``'s backward (bf16 inputs, layer 0's head layout
+    at the train shape) against autograd through a plain, unchunked
+    masked fp32 softmax: dq, dk, dv within LMT_FLASH_TOL relative."""
+    from repro_torch.models import attention as attn
+    H = cfg.n_heads
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        h, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    else:
+        h = dv = cfg.head_dim
+    s = LMT_SEQ           # the plain side holds ~6 (b, H, s, s) fp32 tiles
+    while 24 * b * H * s * s > LMT_PLAIN_BYTES:
+        s //= 2
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+    q, k, v = randn(b, s, H, h), randn(b, s, H, h), randn(b, s, H, dv)
+    w = torch.randn((b, s, H, dv), generator=gen, device="cuda")
+    scale = h ** -0.5
+    out = attn.flash_attention(q, k, v, scale=scale)
+    got = torch.autograd.grad((out.float() * w).sum(), [q, k, v])
+    f32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    sc = torch.einsum("bqhd,bkhd->bhqk", f32[0], f32[1]) * scale
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    p = torch.softmax(sc.masked_fill(~mask, float("-inf")), -1)
+    del sc
+    ref = torch.einsum("bhqk,bkhd->bqhd", p, f32[2])
+    del p
+    want = torch.autograd.grad((ref * w).sum(), f32)
+    errs = {n: _leaf_rel(g, wg) for n, g, wg in zip("qkv", got, want)}
+    check(max(errs.values()) <= LMT_FLASH_TOL,
+          f"lm_train {cfg.name}: flash backward vs plain softmax {errs}")
+    del got, want, ref, f32
+    torch.cuda.empty_cache()
+    return {"shape": f"({b}, {s}, {H}, {h}), dv {dv}, causal, bf16",
+            "seq": s, "d_rel_err": errs}
+
+
+def lm_remat_check(cfg, b) -> dict:
+    """remat "full" against "none" on a 2-layer cut at full width: the
+    gradients within LMT_REMAT_TOL per leaf; bitwise or not."""
+    from dataclasses import replace
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+    c2 = replace(cfg, n_layers=2, mtp_depth=0)
+    if c2.moe is not None and c2.moe.first_dense_layers:
+        # deepseek's first two layers, both dense
+        c2 = replace(c2, moe=replace(c2.moe, first_dense_layers=2))
+    p = tr.init_params(c2, seed=5, device="cuda")
+    batch = next(lm_batches(c2, b, LMT_SEQ, 1, seed=4))
+    grads = {}
+    for remat in ("none", "full"):
+        st = {}
+        tr.make_train_step(c2, _GradCapture, remat=remat)(p, st, batch)
+        grads[remat] = st["grads"]
+    errs = {k: _leaf_rel(grads["full"][k], grads["none"][k])
+            for k in grads["none"]}
+    bitwise = all(torch.equal(grads["full"][k], grads["none"][k])
+                  for k in grads["none"])
+    worst = max(errs.values())
+    check(worst <= LMT_REMAT_TOL, f"lm_train {cfg.name}: remat full vs "
+                                  f"none max leaf err {worst:.2e}")
+    del p, grads
+    torch.cuda.empty_cache()
+    return {"layers": 2, "max_leaf_rel_err": worst, "bitwise": bitwise}
+
+
+def lm_grad_check(cfg, gen) -> dict:
+    """The gradient at full width: a 2-layer fp32 cut (seq 1024, batch 2),
+    ``make_train_step``'s gradient g (remat "dots") against a central
+    difference of ``loss_fn`` along a random unit direction d, within
+    LMT_FD_TOL of g.d."""
+    from dataclasses import replace
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+    c2 = replace(cfg, n_layers=2, mtp_depth=0, dtype="float32")
+    p = tr.init_params(c2, seed=5, device="cuda")
+    b = shard_batch(next(lm_batches(c2, 2, 1024, 1, seed=4)), "cuda")
+    st = {}
+    tr.make_train_step(c2, _GradCapture)(p, st, b)
+    g = st["grads"]
+    d = {k: torch.randn(v.shape, generator=gen, device="cuda")
+         for k, v in g.items()}
+    norm = sum(float((x * x).sum()) for x in d.values()) ** 0.5
+    gd = sum(float((g[k] * d[k]).sum()) for k in g) / norm
+    leaves = dict(tr.tree_leaves(p))
+    loss = []
+    for sign in (1, -1):
+        q = tr._tree(list(leaves), [v + sign * LMT_FD_EPS / norm * d[k]
+                                    for k, v in leaves.items()])
+        with torch.no_grad():
+            loss.append(float(tr.loss_fn(q, b["tokens"], b["labels"], c2)))
+        del q
+    fd = (loss[0] - loss[1]) / (2 * LMT_FD_EPS)
+    err = abs(fd - gd) / abs(gd)
+    check(err <= LMT_FD_TOL, f"lm_train {cfg.name}: gradient along a random "
+                             f"direction {gd:.4e}, central difference "
+                             f"{fd:.4e}")
+    del p, g, d, leaves
+    torch.cuda.empty_cache()
+    return {"layers": 2, "dtype": "float32", "seq": 1024, "g_dot_d": gd,
+            "central_difference": fd, "rel_err": err}
+
+
+def lm_accum_check(cfg, params, batch) -> dict:
+    """accum=2 against accum=1 on the same batch of 2 (no update): the
+    gradient tree and the loss within the bf16 accumulation's
+    tolerance."""
+    from repro_torch.models import transformer as tr
+    res = {}
+    for accum in (1, 2):
+        st = {}
+        _, _, m = tr.make_train_step(cfg, _GradCapture, accum=accum)(
+            params, st, batch)
+        res[accum] = (float(m["loss"]), st["grads"])
+    err = _rel_fro(res[2][1], res[1][1])
+    lerr = abs(res[2][0] - res[1][0]) / abs(res[1][0])
+    check(err <= LMT_ACCUM_TOL and lerr <= LMT_LOSS_TOL,
+          f"lm_train {cfg.name}: accum=2 vs 1 grads {err:.2e}, loss "
+          f"{lerr:.2e}")
+    return {"grad_tree_rel_err": err, "loss_rel_err": lerr}
+
+
+def lm_train_ckpt() -> dict:
+    """``train_lm`` with ``--ckpt-dir`` on granite: 4 steps, against 2
+    steps then the run continued from its checkpoint to 4; the last
+    checkpoints' leaves byte for byte (their md5s) and the final loss
+    equal.  Granite is cut to LMT_CKPT_LAYERS layers: each step writes a
+    checkpoint (``max(steps // 4, 1)``), eight in all, and the whole
+    model's 2.77 GB each would spend ~40 s hashing and writing."""
+    import tempfile
+    from dataclasses import replace
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    cfg = get_config("granite-moe-1b-a400m")
+    cut = f"layers {cfg.n_layers} -> {LMT_CKPT_LAYERS}"
+    cfg = replace(cfg, n_layers=LMT_CKPT_LAYERS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        whole = launch_train.train_lm(cfg, 4, 2, 512, ckpt_dir=f"{d}/a")
+        part = launch_train.train_lm(cfg, 2, 2, 512, ckpt_dir=f"{d}/b")
+        cont = launch_train.train_lm(cfg, 4, 2, 512, ckpt_dir=f"{d}/b")
+        ma = Checkpointer(f"{d}/a").manifest(4)["leaves"]
+        mb = Checkpointer(f"{d}/b").manifest(4)["leaves"]
+    same = ma.keys() == mb.keys() and all(ma[k]["crc"] == mb[k]["crc"]
+                                          for k in ma)
+    check(part["steps"] == 2 and cont["steps"] == whole["steps"] == 4,
+          f"lm_train ckpt: steps {part}, {cont}, {whole}")
+    check(same and cont["final_loss"] == whole["final_loss"],
+          f"lm_train ckpt: the resumed run's checkpoint differs "
+          f"({cont['final_loss']} vs {whole['final_loss']})")
+    return {"arch": "granite-moe-1b-a400m", "cut": cut, "batch": 2,
+            "seq": 512, "leaves": len(ma), "bitwise": same,
+            "final_loss": whole["final_loss"],
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_train_run(arch, n_layers, batch, gen) -> dict:
+    """One full-width LM trained on the card (bf16): LMT_STEPS adafactor
+    steps (lr LMT_STEP_LR) on one repeated ``lm_batches`` batch (the loss
+    falls), timed
+    (host clock to the loss on the host), tokens/s, the busy share of one
+    step, peak memory; the flash backward against a plain softmax; remat
+    full vs none on a 2-layer cut; llama: the gradient against a central
+    difference (fp32, 2 layers) and accum=2 against accum=1."""
+    from dataclasses import replace
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synth import lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.params import count_params
+    from repro_torch.optim.optimizers import adafactor
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cuts = [f"batch {LM_SHAPES['train_4k'].global_batch} -> {batch}"]
+    if n_layers is not None:
+        # deepseek's first_dense_layers is 3: a 3-layer cut is all dense
+        cuts += [f"layers {cfg.n_layers} -> {n_layers} (dense)",
+                 f"mtp_depth {cfg.mtp_depth} -> 0"]
+        cfg = replace(cfg, n_layers=n_layers, mtp_depth=0)
+        check(tr._layer_split(cfg)[1] == 0, f"lm_train {arch}: the cut "
+                                            "keeps an MoE layer")
+    if batch % cfg.train_accum:
+        cuts.append(f"train_accum {cfg.train_accum} -> 1")
+        cfg = replace(cfg, train_accum=1)
+    print(f"lm_train {arch}: cuts {cuts}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    line = {"arch": arch, "card": smi(), "layers": cfg.n_layers,
+            "params": count_params(tr.model_specs(cfg)), "batch": batch,
+            "seq": LMT_SEQ, "remat": "dots", "lr": LMT_STEP_LR,
+            "cuts": cuts}
+    line["flash_check"] = lm_flash_check(cfg, batch, gen)
+    print(f"lm_train {arch}: flash check {line['flash_check']}", flush=True)
+    line["remat_check"] = lm_remat_check(cfg, batch)
+    print(f"lm_train {arch}: remat check {line['remat_check']}", flush=True)
+    if arch == "llama3.2-3b":
+        line["grad_check"] = lm_grad_check(cfg, gen)
+        print(f"lm_train {arch}: gradient check {line['grad_check']}",
+              flush=True)
+    params = tr.init_params(cfg, seed=11, device="cuda")
+    b = shard_batch(next(lm_batches(cfg, batch, LMT_SEQ, 1, seed=5)),
+                    "cuda")
+    if arch == "llama3.2-3b":
+        line["accum_check"] = lm_accum_check(cfg, params, b)
+        print(f"lm_train {arch}: accum check {line['accum_check']}",
+              flush=True)
+    opt = adafactor(lr=LMT_STEP_LR)
+    ostate = opt.init(params)
+    step = tr.make_train_step(cfg, opt)
+    losses, gnorms, step_ms = [], [], []
+    for _ in range(LMT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(params, ostate, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+    print(f"lm_train {arch}: losses {losses}, step ms {step_ms}",
+          flush=True)
+    check(all(np.isfinite(losses + gnorms)),
+          f"lm_train {arch}: non-finite loss or grad_norm {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"lm_train {arch}: loss does not fall on one batch: {losses}")
+    med = statistics.median(step_ms[1:])
+    busy = device_busy(lambda st, bb: step(params, ostate, bb), None, b,
+                       med, reps=1)
+    line.update(losses=losses, grad_norms=gnorms, step_ms=step_ms,
+                median_step_ms=med, tok_s=batch * LMT_SEQ / med * 1e3,
+                **busy)
+    line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rows = lm_train_rows(arch, cfg, params, ostate, b, gen)
+    del params, ostate, b
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t0
+    return {"line": line, "rows": rows}
+
+
+def _adafactor_bytes(params, state) -> int:
+    """adafactor's update, each byte once: the gradient and parameter
+    read, the parameter written, each second-moment leaf read and
+    written."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.optimizers import _leaves
+    p = sum(t.numel() * t.element_size() for _, t in tr.tree_leaves(params))
+    v = sum(t.numel() * t.element_size() for _, t in _leaves(state["v"]))
+    return 3 * p + 2 * v
+
+
+def lm_train_rows(arch, cfg, params, ostate, b, gen) -> list:
+    """The train path's device code timed alone (CUDA events, dirty L2,
+    median): the flash attention forward + backward at layer 0's train
+    shape beside SDPA's (causal, bf16); llama: the adafactor update of the
+    whole tree beside its bytes bound, the cross-entropy forward +
+    backward beside ``F.cross_entropy``'s; granite: the MoE block forward
+    + backward."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.optimizers import adafactor
+    timer = Timer(reps=5)
+    rows = []
+    bf = torch.bfloat16
+    B, s = b["tokens"].shape
+
+    def row(name, ms, cost, library_ms, calls, **kw):
+        r = {"name": name, "arch": arch, "ms": ms, "plain_ms": ms,
+             "library_ms": library_ms, "calls_per_step": calls, **cost, **kw}
+        rows.append(r)
+        print("lm_train_timing " + json.dumps(r), flush=True)
+
+    def randn(*shape, dtype=bf, grad=False):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            dtype).requires_grad_(grad)
+
+    H = cfg.n_heads
+    if cfg.attn_type == "mla":
+        h, dv = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, \
+            cfg.mla.v_head_dim
+    else:
+        h = dv = cfg.head_dim
+    q, k, v = (randn(B, s, H, h, grad=True), randn(B, s, H, h, grad=True),
+               randn(B, s, H, dv, grad=True))
+    do = randn(B, s, H, dv)
+    scale = h ** -0.5
+
+    def flash():
+        out = attn.flash_attention(q, k, v, scale=scale)
+        torch.autograd.grad(out, [q, k, v], do)
+    ms = timer(flash)
+    fwd = timer(lambda: attn.flash_attention(q.detach(), k.detach(),
+                                             v.detach(), scale=scale))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             scale=scale)
+        torch.autograd.grad(out, [qt, kt, vt], dot)
+    row("flash_attention/fwd+bwd", ms, _flash_cost(B, H, s, h, dv, 2),
+        timer(sdpa), cfg.n_layers, forward_ms=fwd,
+        shape=f"({B}, {s}, {H}, {h}), dv {dv}, causal, bf16; library: SDPA "
+              "forward + backward")
+    del q, k, v, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    if arch == "llama3.2-3b":
+        grads = tr._tree(*zip(*[(kk, torch.randn(
+            t.shape, generator=gen, device="cuda").to(t.dtype) * 1e-3)
+            for kk, t in tr.tree_leaves(params)]))
+        opt = adafactor(lr=LMT_LR)
+        nbytes = _adafactor_bytes(params, ostate)
+        n = sum(t.numel() for _, t in tr.tree_leaves(params))
+        ms = timer(lambda: opt.update(grads, ostate, params))
+        c = bound(nbytes, 12 * n)
+        row("adafactor_update", ms, c, None, 1,
+            shape=f"{n} parameters (bf16), factored second moments; "
+                  "library none: torch.optim.Adafactor scales its step by "
+                  "the parameter's RMS, another function")
+        del grads
+        torch.cuda.empty_cache()
+        V = cfg.vocab
+        logits = randn(B, s, V, grad=True)
+        labels = b["labels"].long()
+
+        def xent():
+            loss = tr._xent_vocab_parallel(logits, labels)
+            torch.autograd.grad(loss, [logits])
+
+        def lib():
+            loss = F.cross_entropy(logits.float().reshape(-1, V),
+                                   labels.reshape(-1))
+            torch.autograd.grad(loss, [logits])
+        with torch.no_grad():
+            err = float((tr._xent_vocab_parallel(logits, labels)
+                         - F.cross_entropy(logits.float().reshape(-1, V),
+                                           labels.reshape(-1))).abs())
+        row("lm_xent/fwd+bwd", timer(xent),
+            bound(2 * logits.numel() * 2 + labels.numel() * 8,
+                  5 * logits.numel()), timer(lib), 1, max_abs_err=err,
+            shape=f"logits ({B}, {s}, {V}) bf16; library F.cross_entropy "
+                  "on the fp32 logits")
+        del logits
+        torch.cuda.empty_cache()
+
+    n_dense, n_moe = tr._layer_split(cfg)
+    if n_moe:
+        mp = {kk: t.detach().requires_grad_()
+              for kk, t in tr._layer(params["moe_layers"], 0)["moe"].items()}
+        mc = cfg.moe
+        d, f = cfg.d_model, mc.d_ff_expert
+        x = randn(B, s, d, grad=True)
+        dy = randn(B, s, d)
+        st = {}
+        moe_mod.moe_apply(mp, x, cfg, st)
+
+        def moe():
+            out, aux = moe_mod.moe_apply(mp, x, cfg)
+            torch.autograd.grad([out, aux], [x] + list(mp.values()),
+                                [dy, torch.ones_like(aux)])
+        ntok = B * s
+        hit = st["experts_hit"][0]
+        fs = f * mc.n_shared_experts
+        wbytes = (hit * 3 * d * f + 3 * d * fs) * 2 + d * mc.n_experts * 4
+        nbytes = 3 * wbytes + 4 * ntok * d * 2
+        flops = 3 * (2 * 3 * d * f * ntok * mc.top_k + 2 * 3 * d * fs * ntok
+                     + 2 * d * mc.n_experts * ntok)
+        c = bound(nbytes, 0)
+        to = flops / BF16_FLOPS_PER_S * 1e3
+        if to > c["bound_ms"]:
+            c = dict(c, bound_ms=to, bound_by="operations")
+        c["flops"] = int(flops)
+        row("moe_apply/fwd+bwd", timer(moe), c, None, n_moe,
+            shape=f"{ntok} tokens x top {mc.top_k} of {mc.n_experts} "
+                  f"experts ({hit} hit), d {d}, f {f}, shared {fs}; library "
+                  "none")
+        del x, dy, mp
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_train_phase(gen: torch.Generator) -> tuple:
+    """Phase 16: the LM family's train path (``models.transformer.
+    make_train_step`` with adafactor, the differentiable flash attention,
+    ``launch.train.train_lm``), bf16 at the published widths: llama3.2-3b
+    and granite-moe-1b-a400m whole, deepseek-v3-671b at its widths with 3
+    dense layers and no MTP; seq 4096, batch 2.  First,
+    :func:`lm_train_cpu_checks`; last, :func:`lm_train_ckpt`.  Kernel
+    launch counts are zeroed before and read after: no kernel is on this
+    path."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.reset_launches()
+    cpu = lm_train_cpu_checks()
+    lines, rows = [], []
+    for arch, n_layers, batch in LMT_RUNS:
+        r = lm_train_run(arch, n_layers, batch, gen)
+        lines.append(r["line"])
+        rows += r["rows"]
+        print("lm_train " + json.dumps(lines[-1]), flush=True)
+        torch.cuda.empty_cache()
+    ck = lm_train_ckpt()
+    print("lm_train_ckpt " + json.dumps(ck), flush=True)
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"lm_train phase: {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {launches} (none on this path)", flush=True)
+    return cpu, lines, rows, ck
+
+
+# --------------------------------------------------------------- GNN phase
+GNN_STEPS = 4            # on one batch: the loss must fall
+GNN_LR = 1e-2            # train_gnn's adam
+GNN_SEED = 17
+# fp32 segment sums in index_add_'s (atomic) order: within 1e-5 relative
+# of another order; card vs CPU logits within 1e-5, the loss within 1e-6
+GNN_TOL = 1e-5
+
+
+def gnn_cpu_checks() -> list:
+    """The reduced config, the three regimes on the card against the port
+    on the CPU from the same weights and batch: the logits within
+    GNN_TOL, then one ``adam`` step (the loss within 1e-6 relative; adam's
+    first step moves each weight by about lr x the sign of its gradient,
+    so at most 1 % of a leaf may differ beyond 1e-5, by at most 2 lr)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import adam
+    cfg = reduced(get_config("graphsage-reddit"))
+    rng = np.random.default_rng(3)
+    N, E, F = 200, 800, 16
+    batches = {
+        "full": {"feats": rng.normal(size=(N, F)).astype(np.float32),
+                 "edges": rng.integers(0, N, (E, 2)).astype(np.int32),
+                 "labels": rng.integers(0, 5, N).astype(np.int32)},
+        "minibatch": {"feats": rng.normal(size=(N, F)).astype(np.float32),
+                      "roots": rng.integers(0, N, 8).astype(np.int32),
+                      "hop1": rng.integers(0, N, (8, 3)).astype(np.int32),
+                      "hop2": rng.integers(0, N, (8, 3, 3)).astype(np.int32),
+                      "labels": rng.integers(0, 5, 8).astype(np.int32)},
+        "molecule": {"feats": rng.normal(size=(4, 30, F)).astype(np.float32),
+                     "edges": rng.integers(0, 30, (4, 64, 2)).astype(
+                         np.int32),
+                     "labels": rng.integers(0, 5, 4).astype(np.int32)}}
+    out = []
+    for regime, nb in batches.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = gnn.init_params(cfg, F, seed=7, device="cpu")
+            p = {"layers": [_tree_to(lp, dev) for lp in p["layers"]]}
+            b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            with torch.no_grad():
+                logits = {"full": lambda: gnn.full_forward(
+                    p, b["feats"], b["edges"], cfg),
+                    "minibatch": lambda: gnn.minibatch_forward(
+                        p, b["feats"], b, cfg),
+                    "molecule": lambda: gnn.molecule_forward(
+                        p, b["feats"], b["edges"], cfg)}[regime]()
+            o = adam(GNN_LR)
+            _, _, m = gnn.make_train_step(cfg, o, regime)(p, o.init(p), b)
+            res[dev] = (logits.cpu(), float(m["loss"]), p)
+        lerr = _max_err(res["cuda"][0], res["cpu"][0])
+        loss_err = abs(res["cuda"][1] - res["cpu"][1]) / abs(res["cpu"][1])
+        worst, far, n = 0.0, 0, 0
+        for la, lc in zip(res["cuda"][2]["layers"], res["cpu"][2]["layers"]):
+            for k in la:
+                d = (la[k].cpu() - lc[k]).abs()
+                worst = max(worst, float(d.max()))
+                far = max(far, float((d > 1e-5).float().mean()))
+        line = {"regime": regime, "logits_max_err": lerr,
+                "loss_rel_err": loss_err, "param_max_err": worst,
+                "param_far_share": far}
+        check(lerr <= GNN_TOL and loss_err <= 1e-6,
+              f"gnn {regime} reduced: card vs CPU logits {lerr:.2e}, loss "
+              f"{loss_err:.2e}")
+        check(far <= 0.01 and worst <= 2 * GNN_LR + 1e-6,
+              f"gnn {regime} reduced: params max err {worst:.2e}, far share "
+              f"{far:.4f}")
+        out.append(line)
+        print("gnn_cpu " + json.dumps(line), flush=True)
+    return out
+
+
+def graph_on_card(n_nodes: int, n_edges: int, d_feat: int, n_classes: int,
+                  gen: torch.Generator, seed: int) -> dict:
+    """``make_graph``'s distribution drawn on the card (numpy takes tens of
+    seconds at Reddit's and ogbn-products' sizes): the node popularity
+    ``zipf(1.3)`` on the host, then on the card ``src`` by inverse
+    transform of its CDF (``rng.choice``'s method), ``dst``, the labels
+    and the features from ``gen``.  Edges int64 (src, dst)."""
+    pop = np.random.default_rng(seed).zipf(1.3, n_nodes).astype(np.float64)
+    cdf = torch.from_numpy(np.cumsum(pop / pop.sum())).to("cuda")
+    cdf /= cdf[-1].clone()
+    src = torch.empty(n_edges, dtype=torch.int64, device="cuda")
+    step = 1 << 24
+    for e0 in range(0, n_edges, step):
+        n = min(step, n_edges - e0)
+        u = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+        src[e0:e0 + n] = torch.searchsorted(cdf, u, right=True)
+    dst = torch.randint(0, n_nodes, (n_edges,), generator=gen,
+                        device="cuda")
+    labels = torch.randint(0, n_classes, (n_nodes,), generator=gen,
+                           device="cuda")
+    centers = torch.randn((n_classes, d_feat), generator=gen, device="cuda")
+    feats = centers[labels]
+    feats += torch.randn((n_nodes, d_feat), generator=gen, device="cuda")
+    return {"feats": feats, "src": src.clamp_(max=n_nodes - 1), "dst": dst,
+            "labels": labels}
+
+
+def gnn_agg_rows(g: dict, shape, timer) -> list:
+    """The aggregation alone at ``shape``'s full graph (layer 1's input
+    width): forward, and forward + backward, beside the bytes bound (the
+    features, ids and the output once each) and ``torch.sparse.mm`` of
+    the (dst, src) adjacency (built outside the timing)."""
+    from repro_torch.models import gnn
+    h = g["feats"]
+    N, d = h.shape
+    src, dst = g["graph"]["src"], g["graph"]["dst"]
+    E = src.numel()
+    adj = torch.sparse_coo_tensor(torch.stack([dst, src]),
+                                  torch.ones(E, device="cuda"),
+                                  (N, N)).coalesce().to_sparse_csr()
+    want = torch.sparse.mm(adj, h)
+    got = gnn.aggregate(h, src, dst, N)
+    err = float(((got - want).abs() / (want.abs() + 1)).max())
+    check(err <= GNN_TOL, f"gnn {shape.name}: aggregate vs sparse.mm "
+                          f"{err:.2e}")
+    hg = h.detach().clone().requires_grad_()
+    dy = torch.randn((N, d), device="cuda")
+    rows = []
+    c_f = bound(2 * N * d * 4 + 2 * E * 8, E * d)
+    c_fb = bound(4 * N * d * 4 + 4 * E * 8, 2 * E * d)
+    for tag, fn, lib, c in (
+            ("fwd", lambda: gnn.aggregate(h, src, dst, N),
+             lambda: torch.sparse.mm(adj, h), c_f),
+            ("fwd+bwd",
+             lambda: torch.autograd.grad(gnn.aggregate(hg, src, dst, N),
+                                         [hg], dy),
+             lambda: torch.autograd.grad(torch.sparse.mm(adj, hg), [hg], dy),
+             c_fb)):
+        r = {"name": f"gnn_aggregate/{tag}", "shape": shape.name,
+             "nodes": N, "edges": E, "dim": d, "ms": timer(fn),
+             "library_ms": timer(lib), "max_rel_err": err, **c,
+             "library": "torch.sparse.mm of the CSR adjacency"}
+        r["plain_ms"] = r["ms"]
+        rows.append(r)
+        print("gnn_timing " + json.dumps(r), flush=True)
+    del adj, want, got, hg, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gnn_train_run(cfg, regime: str, shape, batch: dict, d_feat: int,
+                  messages: int) -> dict:
+    """GNN_STEPS ``adam`` steps on one batch: finite, falling, timed (host
+    clock to the loss on the host), messages (gathered edges) per second,
+    peak memory."""
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import adam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p = gnn.init_params(cfg, d_feat, seed=GNN_SEED, device="cuda")
+    o = adam(GNN_LR)
+    st = o.init(p)
+    step = gnn.make_train_step(cfg, o, regime)
+    losses, ms = [], []
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(p, st, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"gnn {shape.name}: losses {losses}")
+    med = statistics.median(ms[1:])
+    line = {"shape": shape.name, "regime": regime, "card": smi(),
+            "nodes": shape.n_nodes, "edges": shape.n_edges, "d_feat": d_feat,
+            "messages": messages, "losses": losses, "step_ms": ms,
+            "median_step_ms": med, "edges_s": messages / med * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return line
+
+
+def gnn_phase(gen: torch.Generator) -> tuple:
+    """Phase 17: the GNN family (``models.gnn``, graphsage-reddit at its
+    widths, fp32) in its three regimes at ``GNN_SHAPES``' sizes.  First
+    :func:`gnn_cpu_checks`.  Cora (``full_graph_sm``, ``make_graph`` in
+    numpy): chunked against one-chunk aggregation, pad and out-of-range
+    edges inert, 4 steps; ogbn-products full batch (2,449,029 nodes,
+    61,859,140 edges, d 100; drawn on the card, :func:`graph_on_card`): 4
+    steps and the aggregation timed alone; Reddit (232,965 nodes,
+    114,615,892 edges, d 602; drawn on the card, its CSR sorted on the
+    card and sampled on the host by ``make_sampler``, fanout (15, 10), 1024
+    roots); 128 molecules of 30 nodes and 64 edges (``molecule_batches``);
+    and ``launch.train`` with ``--arch graphsage-reddit`` as the CLI runs
+    it, reduced and ``--full``."""
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.data import synth
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+
+    t0 = time.perf_counter()
+    build.reset_launches()
+    cpu = gnn_cpu_checks()
+    cfg = get_config("graphsage-reddit")
+    lines, rows = [], []
+
+    # -- Cora: chunking, pad edges, training
+    sh = GNN_SHAPES["full_graph_sm"]
+    g = synth.make_graph(sh.n_nodes, sh.n_edges, sh.d_feat, cfg.n_classes,
+                         seed=GNN_SEED)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in g.items()}
+    p = gnn.init_params(cfg, sh.d_feat, seed=GNN_SEED, device="cuda")
+    with torch.no_grad():
+        whole = gnn.full_forward(p, b["feats"], b["edges"], cfg)
+        keep = gnn.AGG_BYTES
+        gnn.AGG_BYTES = 1000 * sh.d_feat * 4       # 1000 edges a chunk
+        try:
+            chunked = gnn.full_forward(p, b["feats"], b["edges"], cfg)
+        finally:
+            gnn.AGG_BYTES = keep
+        pads = torch.tensor([[-1, 0], [sh.n_nodes, 1], [2, -1],
+                             [3, sh.n_nodes]] * 4, device="cuda",
+                            dtype=b["edges"].dtype)
+        padded = gnn.full_forward(p, b["feats"],
+                                  torch.cat([b["edges"], pads]), cfg)
+    scale = float(whole.abs().max())
+    ce, pe = _max_err(chunked, whole) / scale, _max_err(padded, whole) / scale
+    check(ce <= GNN_TOL and pe <= GNN_TOL,
+          f"gnn cora: chunked {ce:.2e}, padded {pe:.2e} vs one chunk")
+    b["graph"] = gnn.graph_edges(b["edges"], sh.n_nodes)
+    line = gnn_train_run(cfg, "full", sh, b, sh.d_feat, sh.n_edges)
+    line.update(chunked_rel_err=ce, padded_rel_err=pe, drawn="numpy")
+    lines.append(line)
+    print("gnn " + json.dumps(line), flush=True)
+    del b, p
+
+    # -- ogbn-products, full batch
+    sh = GNN_SHAPES["ogb_products"]
+    g = graph_on_card(sh.n_nodes, sh.n_edges, sh.d_feat, cfg.n_classes, gen,
+                      GNN_SEED)
+    g["graph"] = {"src": g["src"], "dst": g["dst"],
+                  "deg": torch.bincount(g["dst"], minlength=sh.n_nodes).to(
+                      torch.float32)}
+    b = {"feats": g["feats"], "edges": None, "graph": g["graph"],
+         "labels": g["labels"]}
+    line = gnn_train_run(cfg, "full", sh, b, sh.d_feat, sh.n_edges)
+    line["drawn"] = "on the card"
+    lines.append(line)
+    print("gnn " + json.dumps(line), flush=True)
+    timer = Timer(reps=5)
+    rows += gnn_agg_rows(g, sh, timer)
+    del g, b, timer
+    torch.cuda.empty_cache()
+
+    # -- Reddit, fanout-sampled minibatch
+    sh = GNN_SHAPES["minibatch_lg"]
+    g = graph_on_card(sh.n_nodes, sh.n_edges, sh.d_feat, cfg.n_classes, gen,
+                      GNN_SEED + 1)
+    t = time.perf_counter()
+    order = torch.sort(g["src"], stable=True).indices
+    indices = g["dst"][order].cpu().numpy()
+    indptr = np.zeros(sh.n_nodes + 1, dtype=np.int64)
+    np.cumsum(torch.bincount(g["src"], minlength=sh.n_nodes).cpu().numpy(),
+              out=indptr[1:])
+    del order
+    csr_s = time.perf_counter() - t
+    sample = gnn.make_sampler(indptr, indices, sh.fanout, seed=GNN_SEED)
+    roots = np.random.default_rng(GNN_SEED).integers(0, sh.n_nodes,
+                                                     sh.batch_nodes)
+    t = time.perf_counter()
+    ids = sample(roots)
+    sample_ms = (time.perf_counter() - t) * 1e3
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in ids.items()}
+    b["feats"] = g["feats"]
+    b["labels"] = g["labels"][b["roots"].long()]
+    f1, f2 = sh.fanout
+    line = gnn_train_run(cfg, "minibatch", sh, b, sh.d_feat,
+                         sh.batch_nodes * f1 * (1 + f2))
+    line.update(csr_s=csr_s, sample_ms=sample_ms, fanout=list(sh.fanout),
+                roots=sh.batch_nodes, drawn="on the card; CSR sorted on "
+                                            "the card, sampled on the host")
+    lines.append(line)
+    print("gnn " + json.dumps(line), flush=True)
+    del g, b, indices, indptr
+    torch.cuda.empty_cache()
+
+    # -- molecules
+    sh = GNN_SHAPES["molecule"]
+    mb = next(synth.molecule_batches(sh.graph_batch, sh.n_nodes, sh.n_edges,
+                                     sh.d_feat, cfg.n_classes, 1,
+                                     seed=GNN_SEED))
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in mb.items()}
+    line = gnn_train_run(cfg, "molecule", sh, b, sh.d_feat,
+                         sh.graph_batch * sh.n_edges)
+    line["drawn"] = "numpy"
+    lines.append(line)
+    print("gnn " + json.dumps(line), flush=True)
+
+    # -- the CLI
+    cli = {}
+    for argv in (["--arch", "graphsage-reddit", "--steps", "50"],
+                 ["--arch", "graphsage-reddit", "--full", "--steps", "50"]):
+        out = launch_train.main(argv)
+        check(np.isfinite(out["final_loss"])
+              and out["final_loss"] < out["first_loss"],
+              f"gnn cli {argv}: {out}")
+        cli[" ".join(argv)] = out
+    print("gnn_cli " + json.dumps(cli), flush=True)
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"gnn phase: {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{launches} (none on this path)", flush=True)
+    return cpu, lines, rows, cli
+
+
 PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
-          "recsys", "paper", "train", "lm")
+          "recsys", "paper", "train", "lm", "lm_train", "gnn")
 
 
 def main(argv=None) -> None:
@@ -4317,7 +5201,9 @@ def main(argv=None) -> None:
                "recsys": lambda: recsys_phase(gen),
                "paper": lambda: paper_phase(gen),
                "train": lambda: train_phase(gen),
-               "lm": lambda: lm_phase(gen)}
+               "lm": lambda: lm_phase(gen),
+               "lm_train": lambda: lm_train_phase(gen),
+               "gnn": lambda: gnn_phase(gen)}
         for p in only:
             run[p]()
             torch.cuda.empty_cache()
@@ -4344,6 +5230,10 @@ def main(argv=None) -> None:
     _, _, train_launches, _ = train_phase(gen)
     torch.cuda.empty_cache()
     lm_phase(gen)
+    torch.cuda.empty_cache()
+    lm_train_phase(gen)
+    torch.cuda.empty_cache()
+    gnn_phase(gen)
     torch.cuda.empty_cache()
     for d in details:
         print("timing " + json.dumps(d), flush=True)

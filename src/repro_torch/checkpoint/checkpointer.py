@@ -17,6 +17,9 @@
     written last, then the directory is renamed; a ``.tmp`` left by a
     crash is never restored.
   * **Retention** -- the ``keep`` most recent checkpoints stay.
+  * **bf16** -- a bfloat16 leaf is written as the reference writes one (2
+    raw bytes an element, a ``V2`` ``.npy``; ``dtype`` "bfloat16" in the
+    manifest) and restored from its bits.
 """
 from __future__ import annotations
 
@@ -67,8 +70,17 @@ def _rebuild(tree: Any, leaves: Dict[str, Any],
 def _host_copy(leaf: Any) -> np.ndarray:
     """A host copy the caller's later in-place writes cannot reach."""
     if torch.is_tensor(leaf):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view("V2")
+        return host.numpy()
     return np.array(leaf, copy=True)
+
+
+def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _dtype_name(leaf: Any) -> str:
@@ -92,10 +104,12 @@ class Checkpointer:
         before returning, with ``blocking``).  ``extra`` is a small
         JSON-serializable dict stored in the manifest (e.g. the serving
         WAL's last applied update sequence number)."""
-        flat = {k: _host_copy(v) for k, v in _items(tree)}
+        items = list(_items(tree))
+        flat = {k: _host_copy(v) for k, v in items}
+        dtypes = {k: _dtype_name(v) for k, v in items}
         self.wait()  # one outstanding write at a time
-        t = threading.Thread(target=self._write, args=(step, flat, extra),
-                             daemon=True)
+        t = threading.Thread(target=self._write,
+                             args=(step, flat, extra, dtypes), daemon=True)
         t.start()
         self._pending = t
         if blocking:
@@ -107,7 +121,8 @@ class Checkpointer:
             self._pending = None
 
     def _write(self, step: int, flat: Dict[str, np.ndarray],
-               extra: Optional[Dict[str, Any]] = None) -> None:
+               extra: Optional[Dict[str, Any]], dtypes: Dict[str, str]
+               ) -> None:
         tmp = os.path.join(self.dir, f"step_{step:012d}.tmp")
         final = os.path.join(self.dir, f"step_{step:012d}")
         if os.path.exists(tmp):
@@ -121,7 +136,7 @@ class Checkpointer:
             manifest["leaves"][key] = {
                 "file": fname,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtypes[key],
                 "crc": _crc(arr),
             }
         # manifest written last = commit barrier
@@ -250,11 +265,11 @@ class Checkpointer:
                 raise IOError(f"checksum mismatch on {key}")
             want = flat_struct[key]
             if into:
-                want.copy_(torch.from_numpy(arr))
+                want.copy_(_from_host(arr, meta["dtype"]))
                 continue
             dev = device if device is not None else (
                 want.device if torch.is_tensor(want) else "cpu")
-            restored[key] = torch.from_numpy(arr).to(dev)
+            restored[key] = _from_host(arr, meta["dtype"]).to(dev)
         return tree_like if into else _rebuild(tree_like, restored)
 
 

@@ -1,5 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
-    Config, DLRMConfig, LM_SHAPES, LMConfig, LMShape, MLAConfig, MoEConfig,
-    REC_SHAPES, RecConfig, RecShape, get_config, list_archs, reduced,
-    reduced_shape, register,
+    GNN_SHAPES, LM_SHAPES, REC_SHAPES, Config, DLRMConfig, GNNConfig, GNNShape,
+    LMConfig, LMShape, MLAConfig, MoEConfig, RecConfig, RecShape, get_config,
+    list_archs, reduced, reduced_shape, register,
 )

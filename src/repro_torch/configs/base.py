@@ -1,11 +1,9 @@
 """Configs, the architecture registry and the CPU-smoke shrinks.
 
-A copy of the DLRM, recsys and LM parts of ``repro.configs.base``:
-``get_config(name)`` resolves a registry id (the ``--arch`` string),
-``reduced(cfg)`` shrinks a config to something a CPU test runs in seconds,
-``reduced_shape`` does the same for a ``RecShape`` or an ``LMShape``.  The
-GNN family is not registered here (``ROADMAP.md`` queue 1 item 17): its id
-raises ``KeyError``; nor is the dry-run's ``iter_cells``.
+A copy of ``repro.configs.base``: ``get_config(name)`` resolves a registry
+id (the ``--arch`` string), ``reduced(cfg)`` shrinks a config to something
+a CPU test runs in seconds, ``reduced_shape`` does the same for a shape
+descriptor.  The dry-run's ``iter_cells`` is not ported.
 """
 from __future__ import annotations
 
@@ -22,12 +20,40 @@ class LMShape:
     subquadratic_only: bool = False
 
 
+@dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str            # "full" | "minibatch" | "batched_small"
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0          # sampled-training root batch
+    fanout: Tuple[int, ...] = ()  # neighbor-sampling fanout per hop
+    graph_batch: int = 0          # batched-small-graphs batch size
+
+
 LM_SHAPES: Dict[str, LMShape] = {
     "train_4k": LMShape("train_4k", "train", 4096, 256),
     "prefill_32k": LMShape("prefill_32k", "prefill", 32768, 32),
     "decode_32k": LMShape("decode_32k", "decode", 32768, 128),
     "long_500k": LMShape("long_500k", "decode", 524288, 1,
                          subquadratic_only=True),
+}
+
+
+GNN_SHAPES: Dict[str, GNNShape] = {
+    # Cora full-batch
+    "full_graph_sm": GNNShape("full_graph_sm", "full", 2708, 10556,
+                              d_feat=1433),
+    # Reddit sampled-training
+    "minibatch_lg": GNNShape("minibatch_lg", "minibatch", 232965, 114615892,
+                             d_feat=602, batch_nodes=1024, fanout=(15, 10)),
+    # ogbn-products full-batch
+    "ogb_products": GNNShape("ogb_products", "full", 2449029, 61859140,
+                             d_feat=100),
+    # batched small molecule graphs
+    "molecule": GNNShape("molecule", "batched_small", 30, 64, d_feat=32,
+                         graph_batch=128),
 }
 
 
@@ -147,7 +173,23 @@ class LMConfig:
         return LM_SHAPES
 
 
-Config = Union[DLRMConfig, RecConfig, LMConfig]
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "mean"
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    n_classes: int = 41
+    family: str = "gnn"
+    dtype: str = "float32"
+    source: str = ""
+
+    def shapes(self) -> Dict[str, GNNShape]:
+        return GNN_SHAPES
+
+
+Config = Union[DLRMConfig, RecConfig, LMConfig, GNNConfig]
 
 _REGISTRY: Dict[str, Config] = {}
 
@@ -163,7 +205,8 @@ def _ensure_loaded() -> None:
     # import side-effect registration
     from repro_torch.configs import (  # noqa: F401
         autoint, bst, dcn_v2, deepseek_67b, deepseek_v3_671b,
-        granite_moe_1b_a400m, llama3_2_3b, nemotron_4_340b, rmc, sasrec)
+        granite_moe_1b_a400m, graphsage_reddit, llama3_2_3b,
+        nemotron_4_340b, rmc, sasrec)
 
 
 def get_config(name: str) -> Config:
@@ -201,6 +244,8 @@ def reduced(cfg: Config) -> Config:
                 n_shared_experts=min(cfg.moe.n_shared_experts, 1),
                 first_dense_layers=min(cfg.moe.first_dense_layers, 1))
         return replace(cfg, **kw)
+    if isinstance(cfg, GNNConfig):
+        return replace(cfg, d_hidden=16, sample_sizes=(4, 3), n_classes=5)
     if isinstance(cfg, RecConfig):
         vocabs = tuple(min(v, 100) for v in cfg.vocab_sizes)
         kw = dict(vocab_sizes=vocabs, embed_dim=8)
@@ -217,12 +262,21 @@ def reduced(cfg: Config) -> Config:
     raise TypeError(f"unknown config type {type(cfg)}")
 
 
-def reduced_shape(shape: Union[RecShape, LMShape]
-                  ) -> Union[RecShape, LMShape]:
+def reduced_shape(shape: Union[RecShape, LMShape, GNNShape]
+                  ) -> Union[RecShape, LMShape, GNNShape]:
     """Shrink a shape descriptor for smoke tests."""
     if isinstance(shape, LMShape):
         return replace(shape, seq_len=min(shape.seq_len, 64),
                        global_batch=min(shape.global_batch, 4))
+    if isinstance(shape, GNNShape):
+        return replace(
+            shape,
+            n_nodes=min(shape.n_nodes, 200),
+            n_edges=min(shape.n_edges, 800),
+            d_feat=min(shape.d_feat, 16) if shape.d_feat else 0,
+            batch_nodes=min(shape.batch_nodes, 8) if shape.batch_nodes else 0,
+            fanout=tuple(min(f, 3) for f in shape.fanout),
+            graph_batch=min(shape.graph_batch, 4) if shape.graph_batch else 0)
     if isinstance(shape, RecShape):
         return replace(shape, batch=min(shape.batch, 16),
                        n_candidates=(min(shape.n_candidates, 64)

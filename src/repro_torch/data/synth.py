@@ -1,9 +1,9 @@
-"""Synthetic click, recsys and LM token streams: copies of
+"""Synthetic click, recsys and LM token streams and graphs: copies of
 ``repro.data.synth``'s ``dlrm_batches``, ``_padded_rows``, ``rec_batches``,
-``lm_batches`` and ``_zipf_ids``, so both packages draw the same batches
-and requests from the same seed, bit for bit.  Host-side numpy;
-``data/pipeline.py`` puts batches on a device.  The graph generators
-belong to ``ROADMAP.md`` queue 1 item 17."""
+``lm_batches``, ``_zipf_ids``, ``make_graph``, ``to_csr`` and
+``molecule_batches``, so both packages draw the same batches, requests and
+graphs from the same seed, bit for bit.  Host-side numpy;
+``data/pipeline.py`` puts batches on a device."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
@@ -92,6 +92,48 @@ def lm_batches(cfg: LMConfig, batch: int, seq: int, n_batches: int,
         toks[:, 2:] = np.where(rep[:, 2:], toks[:, :-2], toks[:, 2:])
         yield {"tokens": toks[:, :-1].astype(np.int32),
                "labels": toks[:, 1:].astype(np.int32)}
+
+
+def make_graph(n_nodes: int, n_edges: int, d_feat: int, n_classes: int,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    """Power-law-ish random graph + community-correlated features/labels."""
+    rng = np.random.default_rng(seed)
+    # preferential-attachment-flavoured edge sampling
+    popularity = rng.zipf(1.3, n_nodes).astype(np.float64)
+    popularity /= popularity.sum()
+    src = rng.choice(n_nodes, n_edges, p=popularity)
+    dst = rng.integers(0, n_nodes, n_edges)
+    labels = rng.integers(0, n_classes, n_nodes)
+    centers = rng.normal(size=(n_classes, d_feat)).astype(np.float32)
+    feats = centers[labels] + rng.normal(
+        scale=1.0, size=(n_nodes, d_feat)).astype(np.float32)
+    edges = np.stack([src, dst], axis=1).astype(np.int32)
+    return {"feats": feats, "edges": edges,
+            "labels": labels.astype(np.int32)}
+
+
+def to_csr(n_nodes: int, edges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Edge list -> CSR (indptr, indices) for the neighbor sampler."""
+    src, dst = edges[:, 0], edges[:, 1]
+    order = np.argsort(src, kind="stable")
+    indices = dst[order].astype(np.int64)
+    counts = np.bincount(src, minlength=n_nodes)
+    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr, indices
+
+
+def molecule_batches(graph_batch: int, n_nodes: int, n_edges: int,
+                     d_feat: int, n_classes: int, n_batches: int,
+                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    rng = np.random.default_rng(seed)
+    for _ in range(n_batches):
+        feats = rng.normal(
+            size=(graph_batch, n_nodes, d_feat)).astype(np.float32)
+        edges = rng.integers(
+            0, n_nodes, (graph_batch, n_edges, 2)).astype(np.int32)
+        labels = rng.integers(0, n_classes, graph_batch).astype(np.int32)
+        yield {"feats": feats, "edges": edges, "labels": labels}
 
 
 def _zipf_ids(rng: np.random.Generator, vocab: int, shape: Tuple[int, ...],

@@ -2,13 +2,16 @@
 ``repro.models.attention`` on one card (the reference's (1, 1) mesh).
 
 * :func:`flash_attention` is the reference's chunked online softmax for
-  prefill, in plain PyTorch: fp32 running max, sum and accumulator, the
-  two ``isinf`` guards, ``p`` cast to ``v``'s dtype before the PV product,
-  the division by ``max(l, 1e-30)``.  Each query row walks the kv chunks
-  in order, as there; several q chunks share one tile, and a tile in
-  which every key follows every row of the tile (a causal tile wholly
-  masked) is skipped, which leaves ``m``, ``l`` and ``acc`` exactly as
-  the reference's pass over it does (``p`` = 0, ``corr`` = 1 or 0).
+  prefill and training, in plain PyTorch: fp32 running max, sum and
+  accumulator, the two ``isinf`` guards, ``p`` cast to ``v``'s dtype
+  before the PV product, the division by ``max(l, 1e-30)``.  Each query
+  row walks the kv chunks in order, as there; several q chunks share one
+  tile, and a tile in which every key follows every row of the tile (a
+  causal tile wholly masked) is skipped, which leaves ``m``, ``l`` and
+  ``acc`` exactly as the reference's pass over it does (``p`` = 0,
+  ``corr`` = 1 or 0).  Under autograd its backward walks the same tiles
+  and recomputes them, where the reference differentiates its scan with
+  every kv step under ``jax.checkpoint(nothing_saveable)``.
 * Decode scores the new token against the whole cache, masked past
   ``pos``; the reference's per-shard partials and their ``pmax`` /
   ``psum`` are one shard's on one card.  MLA decode is the absorbed form:
@@ -79,46 +82,56 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_chunk: int = 512,
-                    kv_chunk: int = 1024, scale=None, q_offset: int = 0
-                    ) -> torch.Tensor:
-    """q: (b, sq, H, h); k: (b, skv, H, h); v: (b, skv, H, dv) (GQA callers
-    repeat kv to H heads first).  Returns (b, sq, H, dv) in q's dtype."""
-    b, sq, H, h = q.shape
+def _groups(b: int, H: int, sq: int, q_chunk: int, kv_chunk: int):
+    """The q row groups ``(g0, g1)`` that share one fp32 score tile."""
+    rows = max(1, TILE_BYTES // (4 * b * H * q_chunk * kv_chunk)) * q_chunk
+    return [(g0, min(sq, g0 + rows)) for g0 in range(0, sq, rows)]
+
+
+def _tiles(g0: int, g1: int, skv: int, kv_chunk: int, causal: bool,
+           q_offset: int):
+    """``(k0, k1, a)`` for each kv tile the rows ``[g0, g1)`` walk, in
+    order: ``a`` is the first row with a valid key in the tile (the rows
+    before it, and every row in the later tiles, see only masked keys
+    there, a pass that changes nothing)."""
+    for k0 in range(0, skv, kv_chunk):
+        a = max(g0, k0 - q_offset) if causal else g0
+        if a >= g1:
+            return
+        yield k0, k0 + kv_chunk, a
+
+
+def _scores(qf, kf, a, g1, k0, k1, scale, causal, q_offset):
+    """The scaled fp32 scores of rows ``[a, g1)`` against keys ``[k0,
+    k1)``, causally masked to -inf."""
+    s = torch.matmul(qf[:, :, a:g1], kf[:, :, k0:k1].transpose(-1, -2))
+    s.mul_(scale)
+    if causal and a + q_offset < k1 - 1:            # crosses the diagonal
+        dev = s.device
+        qpos = q_offset + torch.arange(a, g1, device=dev)
+        s.masked_fill_(qpos[:, None] < torch.arange(k0, k1, device=dev),
+                       NEG_INF)
+    return s
+
+
+def _flash_fwd(q, k, v, causal, q_chunk, kv_chunk, scale, q_offset):
+    """The online softmax: out (b, H, sq, dv) fp32 and each row's ``m +
+    log l`` (b, H, sq), +inf for a row with no valid key."""
+    b, sq, H, _ = q.shape
     skv, dv = k.shape[1], v.shape[-1]
-    scale = scale if scale is not None else h ** -0.5
-    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
-    if sq % q_chunk or skv % kv_chunk:
-        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) do not divide "
-                         f"the lengths ({sq}, {skv})")
     dev = q.device
     qf = _f32(q.transpose(1, 2))                    # (b, H, sq, h)
     kf = _f32(k.transpose(1, 2))                    # (b, H, skv, h)
     vf = _f32(v.transpose(1, 2))                    # (b, H, skv, dv)
     out = torch.empty(b, H, sq, dv, dtype=F32, device=dev)
-    rows = max(1, TILE_BYTES // (4 * b * H * q_chunk * kv_chunk)) * q_chunk
-    kpos_all = torch.arange(skv, device=dev)
-    for g0 in range(0, sq, rows):
-        g1 = min(sq, g0 + rows)
+    lse = torch.empty(b, H, sq, dtype=F32, device=dev)
+    for g0, g1 in _groups(b, H, sq, q_chunk, kv_chunk):
         m = torch.full((b, H, g1 - g0), NEG_INF, dtype=F32, device=dev)
         l = torch.zeros((b, H, g1 - g0), dtype=F32, device=dev)
         acc = torch.zeros((b, H, g1 - g0, dv), dtype=F32, device=dev)
-        for k0 in range(0, skv, kv_chunk):
-            k1 = k0 + kv_chunk
-            # the group's rows with a valid key in this tile: the rows
-            # before ``a`` (and every row in the later tiles) see only
-            # masked keys here, a pass that changes nothing
-            a = max(g0, k0 - q_offset) if causal else g0
-            if a >= g1:
-                break
+        for k0, k1, a in _tiles(g0, g1, skv, kv_chunk, causal, q_offset):
             n0 = a - g0
-            s = torch.matmul(qf[:, :, a:g1], kf[:, :, k0:k1].transpose(-1, -2))
-            s.mul_(scale)
-            if causal and a + q_offset < k1 - 1:    # crosses the diagonal
-                qpos = q_offset + torch.arange(a, g1, device=dev)
-                s.masked_fill_(qpos[:, None] < kpos_all[None, k0:k1],
-                               NEG_INF)
+            s = _scores(qf, kf, a, g1, k0, k1, scale, causal, q_offset)
             m_old = m[:, :, n0:]
             m_new = torch.maximum(m_old, s.amax(-1))
             dead = torch.isinf(m_new)               # guard fully-masked rows
@@ -133,7 +146,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m[:, :, n0:] = m_new
             del s, p
         out[:, :, g0:g1] = acc / l.clamp_min(1e-30)[..., None]
-    return out.to(q.dtype).transpose(1, 2)
+        lse[:, :, g0:g1] = torch.where(l > 0, m + torch.log(l),
+                                       float("inf"))
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, q_chunk, kv_chunk, scale,
+               q_offset):
+    """The gradients of :func:`_flash_fwd`'s output, walking its tiles
+    and recomputing each tile's scores and probabilities ``p = exp(s -
+    lse)`` (no tile is kept from the forward): ``dV += p^T dO`` with ``p``
+    rounded to ``v``'s dtype as the forward's PV product is, ``dS = p (dO
+    V^T - rowsum(dO O))``, ``dQ += scale dS K``, ``dK += scale dS^T Q``.
+    A row with no valid key has ``lse`` +inf, so ``p`` = 0 and it takes
+    no gradient.  Returns fp32 (b, H, s, .) tensors."""
+    b, sq, H, _ = q.shape
+    skv = k.shape[1]
+    qf, kf, vf = (_f32(t.transpose(1, 2)) for t in (q, k, v))
+    do = _f32(dout.transpose(1, 2))                 # (b, H, sq, dv)
+    delta = (do * _f32(out.transpose(1, 2))).sum(-1)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for g0, g1 in _groups(b, H, sq, q_chunk, kv_chunk):
+        for k0, k1, a in _tiles(g0, g1, skv, kv_chunk, causal, q_offset):
+            p = _scores(qf, kf, a, g1, k0, k1, scale, causal, q_offset)
+            p = p.sub_(lse[:, :, a:g1, None]).exp_()
+            dv[:, :, k0:k1] += torch.matmul(
+                p.to(v.dtype).to(F32).transpose(-1, -2), do[:, :, a:g1])
+            ds = torch.matmul(do[:, :, a:g1], vf[:, :, k0:k1].transpose(-1, -2))
+            ds = ds.sub_(delta[:, :, a:g1, None]).mul_(p).mul_(scale)
+            del p
+            dq[:, :, a:g1] += torch.matmul(ds, kf[:, :, k0:k1])
+            dk[:, :, k0:k1] += torch.matmul(ds.transpose(-1, -2),
+                                            qf[:, :, a:g1])
+            del ds
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its tiled backward
+    (:func:`_flash_bwd`): the forward keeps the output and each row's
+    ``m + log l``, never a score tile, as the reference's chunk scan
+    keeps none under ``jax.checkpoint(nothing_saveable)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, scale, q_offset):
+        out, lse = _flash_fwd(q, k, v, causal, q_chunk, kv_chunk, scale,
+                              q_offset)
+        out = out.to(q.dtype).transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_chunk, kv_chunk, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return (dq.transpose(1, 2).to(q.dtype),
+                dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype),
+                None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 1024, scale=None, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """q: (b, sq, H, h); k: (b, skv, H, h); v: (b, skv, H, dv) (GQA callers
+    repeat kv to H heads first).  Returns (b, sq, H, dv) in q's dtype;
+    differentiable through :class:`_FlashAttention`, whose backward walks
+    the tiles again."""
+    sq, h = q.shape[1], q.shape[3]
+    skv = k.shape[1]
+    scale = scale if scale is not None else h ** -0.5
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) do not divide "
+                         f"the lengths ({sq}, {skv})")
+    return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk, scale,
+                                 q_offset)
 
 
 # ---------------------------------------------------------------------------

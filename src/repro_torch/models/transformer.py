@@ -1,5 +1,5 @@
-"""LM transformer (dense and MoE, GQA and MLA): the serving half of
-``repro.models.transformer`` on one card, prefill and KV-cache decode.
+"""LM transformer (dense and MoE, GQA and MLA): ``repro.models.transformer``
+on one card -- the train step, prefill and KV-cache decode.
 
 The parameter tree is the reference's: nested dicts under its names, the
 layers of a kind stacked on a leading axis (``dense_layers.attn.wq`` is
@@ -15,7 +15,16 @@ the reference scans.  On one card:
   ``ffn_apply_sharded`` is :func:`ffn_apply`;
 * :func:`decode_step` writes the new token into the given cache tensors
   and returns them (the reference returns a new cache of equal values;
-  llama's at batch 8 and 32,768 positions is 30 GB).
+  llama's at batch 8 and 32,768 positions is 30 GB);
+* the vocab-parallel cross-entropy is one shard's: fp32 logits, a max
+  shift that carries no gradient, ``logsumexp - gold``;
+* :func:`make_train_step` takes the gradients with ``torch.autograd.grad``
+  over the tree's leaves and updates the parameters in place (the
+  optimizers' rule).  The reference's remat policies are
+  ``torch.utils.checkpoint`` around each layer: ``"full"`` saves nothing
+  inside a layer, ``"dots"`` saves the outputs of its plain matmuls
+  (``aten.mm``: the reference's dots without batch dims), ``"none"``
+  checkpoints nothing.  They compute one function and differ in memory.
 
 ``prefill_step`` keeps no cache, as the reference's does not.  Entry
 points run where the parameters live: the card, unless they were made
@@ -23,10 +32,14 @@ with ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -215,7 +228,10 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: LMConfig
     emb = params["embed"]
     V = emb.shape[0]
     owned = (tokens >= 0) & (tokens < V)
-    rows = emb[tokens.clamp(0, V - 1)]
+    # a gather whose backward sorts the ids and sums each row's in a fixed
+    # order (``embedding_dense_backward``): a zipfian token stream repeats
+    # bit for bit
+    rows = F.embedding(tokens.clamp(0, V - 1), emb)
     return torch.where(owned[..., None], rows, torch.zeros_like(rows))
 
 
@@ -223,15 +239,48 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return x @ params["head"]
 
 
-def forward(params: dict, tokens, cfg: LMConfig
+REMAT = ("none", "dots", "full")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layer(lp: dict, x: torch.Tensor, cfg: LMConfig, kind: str,
+               remat: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block under the remat policy (no checkpoint without
+    gradients)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return _layer_fwd(lp, x, cfg, kind)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return checkpoint(_layer_fwd, lp, x, cfg, kind, use_reentrant=False,
+                      **kw)
+
+
+def _unstack(stack: dict, n: int) -> List[dict]:
+    """The ``n`` layers of a stack as views (``unbind``: under autograd
+    one backward node stacks the layers' gradients once)."""
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in stack.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def forward(params: dict, tokens, cfg: LMConfig, remat: str = "dots"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) -> hidden (b, s, d) and the summed MoE aux loss."""
     tokens = _tokens(params, tokens)
     x = embed_tokens(params, tokens, cfg).to(cfg_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for key, kind, _, n in _stacks(cfg):
-        for i in range(n):
-            x, a = _layer_fwd(_layer(params[key], i), x, cfg, kind)
+        for lp in _unstack(params[key], n):
+            x, a = _run_layer(lp, x, cfg, kind, remat)
             aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -242,6 +291,142 @@ def prefill_step(params: dict, tokens, cfg: LMConfig) -> torch.Tensor:
     is kept, as in the reference."""
     x, _ = forward(params, tokens, cfg)
     return lm_logits(params, x[:, -1:], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Losses / steps
+# ---------------------------------------------------------------------------
+
+
+def _xent_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor
+                         ) -> torch.Tensor:
+    """Mean cross-entropy in fp32 over one vocab shard (all of it): the
+    max shift carries no gradient (it cancels in ``logsumexp - gold``); a
+    label outside ``[0, V)`` scores ``gold`` = 0, as the reference's
+    ``owned`` mask gives."""
+    lg = logits.float()
+    V = lg.shape[-1]
+    m = lg.detach().amax(-1)
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    labels = labels.long()
+    owned = (labels >= 0) & (labels < V)
+    picked = lg.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    gold = torch.where(owned, picked, torch.zeros_like(picked))
+    return (torch.log(se) + m - gold).mean()
+
+
+def loss_fn(params: dict, tokens, labels, cfg: LMConfig,
+            remat: str = "dots") -> torch.Tensor:
+    """The cross-entropy, plus the MTP loss when ``cfg.mtp_depth``, plus
+    the summed MoE aux loss."""
+    tokens = _tokens(params, tokens)
+    labels = _tokens(params, labels)
+    x, aux = forward(params, tokens, cfg, remat=remat)
+    loss = _xent_vocab_parallel(lm_logits(params, x, cfg), labels)
+    if cfg.mtp_depth:
+        loss = loss + _mtp_loss(params, x, tokens, labels, cfg)
+    return loss + aux
+
+
+def _mtp_step(mp: dict, hprev: torch.Tensor, emb: torch.Tensor,
+              cfg: LMConfig, kind: str) -> torch.Tensor:
+    comb = torch.cat([rms_norm(hprev, mp["norm_prev"], cfg.norm_eps),
+                      rms_norm(emb, mp["norm_emb"], cfg.norm_eps)], dim=-1)
+    hk, _ = _layer_fwd(mp["block"], comb @ mp["proj"], cfg, kind)
+    return hk
+
+
+def _mtp_loss(params: dict, h: torch.Tensor, tokens: torch.Tensor,
+              labels: torch.Tensor, cfg: LMConfig, weight: float = 0.3
+              ) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction, exactly as the reference
+    computes it: every depth rolls ``tokens`` by one (not by depth + 1),
+    the MTP block's aux loss is dropped, and only the last depth's hidden
+    state is scored, against ``labels`` rolled (wrapping) by
+    ``mtp_depth``.  Each depth is recomputed in the backward, as the
+    reference's ``nothing_saveable`` body is."""
+    kind = "moe" if cfg.moe is not None else "dense"
+    hk = h
+    for mp in _unstack(params["mtp"], cfg.mtp_depth):
+        emb = embed_tokens(params, torch.roll(tokens, -1, dims=1),
+                           cfg).to(hk.dtype)
+        hk = checkpoint(_mtp_step, mp, hk, emb, cfg, kind,
+                        use_reentrant=False)
+    lab_k = torch.roll(labels, -cfg.mtp_depth, dims=1)
+    return weight * _xent_vocab_parallel(lm_logits(params, hk, cfg), lab_k)
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``(dotted path, tensor)`` of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from tree_leaves(v, path)
+        else:
+            yield path, v
+
+
+def _tree(paths, leaves) -> dict:
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        *heads, last = path.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = leaf
+    return out
+
+
+def make_train_step(cfg: LMConfig, optimizer, remat: str = "dots",
+                    accum: Optional[int] = None):
+    """``(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"})``, parameters and optimizer state updated in place.
+
+    ``accum`` (default ``cfg.train_accum``) > 1 splits the batch into
+    that many microbatches of consecutive rows; their gradients sum in
+    the parameter dtype (bf16 for every LM config), the losses in fp32,
+    and the sums are divided by ``accum`` (the gradients cast back).
+    ``grad_norm`` is taken in fp32 over the final gradients."""
+    accum = accum if accum is not None else cfg.train_accum
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+
+    def grad_of(paths, leaves, tokens, labels):
+        alias = [p.detach().requires_grad_() for p in leaves]
+        loss = loss_fn(_tree(paths, alias), tokens, labels, cfg,
+                       remat=remat)
+        grads = torch.autograd.grad(loss, alias, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(grads, leaves)]
+
+    def step(params, opt_state, batch):
+        paths, leaves = zip(*tree_leaves(params))
+        tokens = _tokens(params, batch["tokens"])
+        labels = _tokens(params, batch["labels"])
+        if accum <= 1:
+            loss, grads = grad_of(paths, leaves, tokens, labels)
+        else:
+            B = tokens.shape[0]
+            if B % accum:
+                raise ValueError(f"batch {B} does not split into {accum} "
+                                 "microbatches")
+            mb = B // accum
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = [torch.zeros_like(p) for p in leaves]
+            for i in range(accum):
+                rows = slice(i * mb, (i + 1) * mb)
+                l, g = grad_of(paths, leaves, tokens[rows], labels[rows])
+                loss = loss + l
+                for a, gi in zip(grads, g):
+                    a.add_(gi.to(a.dtype))
+                del g
+            loss = loss / accum
+            grads = [(g / accum).to(p.dtype) for g, p in zip(grads, leaves)]
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads))
+        optimizer.update(_tree(paths, grads), opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,10 @@ update is ``(m / bc1) / (sqrt(v / bc2) + eps)``.
   * ``adagrad`` -- DLRM-convention dense/embedding optimizer.
   * ``rowwise_adagrad`` -- one accumulator per embedding *row* (the
     FBGEMM/TorchRec trick): state (rows, 1) instead of (rows, dim).
+  * ``adafactor`` -- factored second moments, no first moment: the LM
+    family's optimizer.
 
-``adafactor`` belongs to ``ROADMAP.md`` queue 1 item 17 (the LM family).
+A tree is a nest of dicts and lists (the GNN's ``{"layers": [...]}``).
 """
 from __future__ import annotations
 
@@ -34,10 +36,14 @@ class Optimizer(NamedTuple):
 
 
 def _leaves(tree: Any, prefix: str = ""):
-    """(path, tensor) pairs of a nested dict, in insertion order."""
+    """(path, tensor) pairs of a nest of dicts and lists, in insertion
+    order."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
 
@@ -45,12 +51,14 @@ def _leaves(tree: Any, prefix: str = ""):
 def _map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def _at(tree: Any, path: str) -> Any:
     for k in path.split("/") if path else ():
-        tree = tree[k]
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
     return tree
 
 
@@ -142,15 +150,64 @@ def rowwise_adagrad(lr: float = 1e-2, eps: float = 1e-10,
     return Optimizer(init, update)
 
 
+def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0, min_dim_factored: int = 128
+              ) -> Optimizer:
+    """Adafactor (Shazeer & Stern) without first moment.  A leaf whose two
+    trailing dims are both >= ``min_dim_factored`` keeps its second moment
+    as the factors ``vr`` (the leaf's shape without its last dim) and
+    ``vc`` (without its second to last); any other keeps a full ``v``.
+    ``beta = 1 - t^-decay``; the relative update is clipped to RMS <=
+    ``clip_threshold`` over the whole leaf.  The fp32 temporaries are one
+    leaf's at a time."""
+    def _factored(p) -> bool:
+        return (p.dim() >= 2 and p.shape[-1] >= min_dim_factored
+                and p.shape[-2] >= min_dim_factored)
+
+    def init(params):
+        def mk(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if _factored(p):
+                return {"vr": torch.zeros(p.shape[:-1], **z),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+        dev = next(p for _, p in _leaves(params)).device
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "v": _map(mk, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        state["step"] += 1
+        beta = 1.0 - torch.pow(state["step"].to(torch.float32), -decay)
+        for path, g in _leaves(grads):
+            v, p = _at(state["v"], path), _at(params, path)
+            u = g.to(torch.float32, copy=True)
+            g2 = u * u + eps
+            if _factored(p):
+                v["vr"].copy_(beta * v["vr"] + (1 - beta) * g2.mean(-1))
+                v["vc"].copy_(beta * v["vc"] + (1 - beta) * g2.mean(-2))
+                del g2
+                vr = v["vr"]
+                denom = (vr[..., None] / vr.mean(-1, keepdim=True).clamp_min(
+                    eps)[..., None]) * v["vc"][..., None, :]
+                u.mul_(denom.clamp_min_(eps).rsqrt_())
+            else:
+                v["v"].copy_(beta * v["v"] + (1 - beta) * g2)
+                del g2
+                u.mul_(v["v"].clamp_min(eps).rsqrt_())
+            rms = torch.sqrt(torch.mean(u * u) + eps)
+            u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
+            p.copy_(p.to(torch.float32) - lr * u)
+        return params, state
+
+    return Optimizer(init, update)
+
+
 _OPTIMIZERS: Dict[str, Callable[..., Optimizer]] = {
-    "adam": adam, "adagrad": adagrad, "rowwise_adagrad": rowwise_adagrad}
+    "adam": adam, "adagrad": adagrad, "adafactor": adafactor,
+    "rowwise_adagrad": rowwise_adagrad}
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:
-    """By the reference's names; ``adafactor`` is the LM family's
-    (``ROADMAP.md`` queue 1 item 17) and raises ``NotImplementedError``."""
-    if name == "adafactor":
-        raise NotImplementedError(
-            "adafactor comes with the LM family (ROADMAP.md queue 1 "
-            "item 17)")
+    """By the reference's names."""
     return _OPTIMIZERS[name](**kw)

@@ -84,8 +84,7 @@ def test_lm_shapes_and_reduced_shapes_equal_the_reference():
         assert dataclasses.asdict(reduced_shape(s)) == dataclasses.asdict(
             jbase.reduced_shape(jbase.LM_SHAPES[k]))
     assert set(LM_ARCHS) <= set(list_archs())
-    with pytest.raises(KeyError):
-        get_config("graphsage-reddit")
+    assert get_config("graphsage-reddit").family == "gnn"
 
 
 def _ref_spec_paths(cfg):

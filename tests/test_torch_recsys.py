@@ -108,9 +108,7 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_shapes_and_reduced_shapes_equal_the_reference():
-    assert list_archs() == sorted(
-        a for a in jbase.list_archs()
-        if jget_config(a).family in ("recsys", "lm"))
+    assert list_archs() == jbase.list_archs()
     assert list_archs(assigned_only=False) == sorted(
         list_archs() + ["rmc1", "rmc2", "rmc3", "rmc4"])
     assert {k: dataclasses.asdict(v) for k, v in REC_SHAPES.items()} == {
@@ -121,9 +119,9 @@ def test_registry_shapes_and_reduced_shapes_equal_the_reference():
     from repro_torch.configs.autoint import CRITEO_CAT_VOCABS
     from repro.configs.autoint import CRITEO_CAT_VOCABS as J_VOCABS
     assert CRITEO_CAT_VOCABS == J_VOCABS
-    for absent in ("graphsage-reddit", "no-such-arch"):
-        with pytest.raises(KeyError):
-            get_config(absent)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+    assert get_config("graphsage-reddit").family == "gnn"
     assert get_config("llama3.2-3b").family == "lm"
     with pytest.raises(TypeError):
         reduced(object())
