@@ -248,7 +248,19 @@
    timed, edges per second, peak memory; the aggregation alone at
    ogbn-products beside its bytes bound and ``torch.sparse.mm``; and
    ``launch.train --arch graphsage-reddit`` (reduced and ``--full``);
-   ``gnn_cpu``, ``gnn``, ``gnn_timing``, ``gnn_cli`` lines.
+   ``gnn_cpu``, ``gnn``, ``gnn_timing``, ``gnn_cli`` lines;
+18. dry-run phase (``launch/dryrun.py``): each of the ten kernels against
+   its shape function (``kernels/fake.py``) at RMC4's widths, the kernel
+   on real inputs and the shape function on fake copies (shape, dtype,
+   device, strides equal); then RMC4 serve at batch 2048 (split, fused),
+   RMC4 train at batch 2048 and llama3.2-3b decode at batch 8 over 32,768
+   positions, each traced on fake CUDA tensors and run once for real under
+   ``launch/op_stats.py``: FLOPs by dtype and kernel calls equal, and the
+   calls equal the kernels' launches; the predicted peak above the
+   arguments beside ``torch.cuda.max_memory_allocated`` and the roofline
+   time beside the measured step (``dryrun`` lines); and ``fits_80gb`` of
+   the cells phases 15-16 cut (false) and of their cuts (true;
+   ``dryrun_fits`` lines).
 
 ``--only`` runs the build and the named phases alone, for a quicker look,
 and prints neither of the last two lines.
@@ -273,6 +285,7 @@ dots agree within 2 * D * 2^-23 * sum_d |x_i[d] * x_j[d]|.  Serve scores
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -1429,11 +1442,11 @@ def slice_phase(timer: Timer):
                 }
                 lib = {}
                 if storage == "fp32":
-                    # row 2 of the table: the null-mask SLS (sls_pallas)
+                    # row 2 of the table: the null-mask SLS (sls_pallas),
+                    # through its own entry point
                     calls["sls"] = (
-                        lambda: ops.masked_sls(cold, flat, None, w2),
-                        lambda: ops.masked_sls(cold, flat, None, w2,
-                                               impl="torch"),
+                        lambda: ops.sls(cold, flat, w2),
+                        lambda: ops.sls(cold, flat, w2, impl="torch"),
                         sls_cost(cold, flat, None, w2, None))
                     lib["sls"] = lambda: torch.nn.functional.embedding_bag(
                         flat, cold, mode="sum", per_sample_weights=w2)
@@ -5148,8 +5161,191 @@ def gnn_phase(gen: torch.Generator) -> tuple:
     return cpu, lines, rows, cli
 
 
+# ----------------------------------------------------------- dry-run phase
+# the cut cells this phase runs for real and dry: (label, arch, shape, the
+# shape's cut, the builder's keywords)
+DRY_RUNS = (("rmc4 serve split", "rmc4", "serve_p99", {"batch": 2048},
+             {"front_end": "split"}),
+            ("rmc4 serve fused", "rmc4", "serve_p99", {"batch": 2048},
+             {"front_end": "fused"}),
+            ("rmc4 train", "rmc4", "train_batch", {"batch": 2048}, {}),
+            ("llama decode", "llama3.2-3b", "decode_32k",
+             {"global_batch": 8}, {}))
+DRY_STEPS = 5            # timed steps of each cut cell
+# whether one card holds a cell: the uncut cells that phases 15-16 cut
+# (PERF.md section 4) must not fit, the cuts they run must: (label, arch,
+# shape, config changes, shape cut, fits)
+DRY_FITS = (
+    ("llama decode_32k", "llama3.2-3b", "decode_32k", {}, {}, False),
+    ("llama decode b8", "llama3.2-3b", "decode_32k", {},
+     {"global_batch": 8}, True),
+    ("granite decode_32k", "granite-moe-1b-a400m", "decode_32k", {}, {},
+     False),
+    ("granite decode b8", "granite-moe-1b-a400m", "decode_32k", {},
+     {"global_batch": 8}, True),
+    ("llama train_4k", "llama3.2-3b", "train_4k", {}, {}, False),
+    ("llama train b2", "llama3.2-3b", "train_4k", {}, {"global_batch": 2},
+     True),
+    ("deepseek-v3 decode_32k", "deepseek-v3-671b", "decode_32k", {}, {},
+     False),
+    ("deepseek-v3 4 layers decode b64", "deepseek-v3-671b", "decode_32k",
+     {"depth": (3, 1), "mtp_depth": 0}, {"global_batch": 64}, True),
+    ("deepseek-v3 4 layers train b2", "deepseek-v3-671b", "train_4k",
+     {"depth": (3, 1), "mtp_depth": 0, "train_accum": 1},
+     {"global_batch": 2}, False),
+    ("deepseek-v3 3 layers train b2", "deepseek-v3-671b", "train_4k",
+     {"depth": (3, 0), "mtp_depth": 0, "train_accum": 1},
+     {"global_batch": 2}, True),
+)
+
+
+def _out_layout(o) -> list:
+    outs = [] if o is None else [o] if torch.is_tensor(o) else list(o)
+    return [(tuple(t.shape), str(t.dtype), str(t.device), t.stride())
+            for t in outs]
+
+
+def dryrun_shape_checks(gen: torch.Generator) -> list:
+    """Each kernel against its shape function at RMC4's widths (B 2048, 8
+    tables of L 8, D 128; 4 cold shards for the partial pools): the kernel
+    on real inputs, the shape function on fake copies of them (fake CUDA
+    tensors), outputs equal in shape, dtype, device and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import fake
+    rows = []
+    for storage in ("fp32", "int8"):
+        cases = fake.kernel_cases("cuda", gen, B=2048, G=8, L=8, D=128, S=4,
+                                  rows=4096, storage=storage)
+        check(set(cases) == set(fake.wrappers()), "a kernel has no case")
+        for name, args in cases.items():
+            want = _out_layout(fake.wrappers()[name](*args))
+            torch.cuda.synchronize()
+            with FakeTensorMode() as mode:
+                fargs = tuple(mode.from_tensor(a) if torch.is_tensor(a)
+                              else a for a in args)
+                got = _out_layout(fake.shape_functions()[name](*fargs))
+            check(got == want, f"dryrun {name} {storage}: shape function "
+                  f"{got} != kernel {want}")
+            rows.append({"name": name, "storage": storage, "outputs": want})
+        del cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _cut_cfg(cfg, changes: dict):
+    from repro_torch.launch.cells import lm_depth_variant
+    changes = dict(changes)
+    if "depth" in changes:
+        cfg = lm_depth_variant(cfg, *changes.pop("depth"))
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def dryrun_phase(gen: torch.Generator) -> tuple:
+    """Phase 18: the dry-run (``launch/dryrun.py``) against the card.
+    Every kernel against its shape function (:func:`dryrun_shape_checks`);
+    then the cut cells of ``DRY_RUNS``, each traced on fake CUDA tensors
+    and run once for real under ``launch.op_stats``: the FLOPs by dtype
+    and the kernel calls equal, and the calls equal the kernels' launch
+    counts (zeroed just before the real step); the predicted peak above
+    the arguments beside ``torch.cuda.max_memory_allocated``, and the
+    roofline time beside the measured step.  Last, ``fits_80gb`` of the
+    cells in ``DRY_FITS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import cells, dryrun, op_stats
+
+    t0 = time.perf_counter()
+    shapes = dryrun_shape_checks(gen)
+    print("dryrun_shapes " + json.dumps(
+        {"checked": len(shapes), "kernels": sorted({r["name"]
+                                                   for r in shapes})}),
+        flush=True)
+    lines, launches = [], {k: 0 for k in build.KERNELS}
+    for label, arch, shape, cut, kw in DRY_RUNS:
+        cfg = get_config(arch)
+        sh = dataclasses.replace(cfg.shapes()[shape], **cut)
+        t = time.perf_counter()
+        _, dry, layers = dryrun.count_cell(arch, shape, "cuda", shape=sh,
+                                           **kw)
+        trace_s = time.perf_counter() - t
+        roof = dryrun.roofline(dry, 0.0)
+        torch.cuda.empty_cache()
+        cell = cells.build_cell(arch, shape, "cuda", seed=0, shape=sh, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        real, out = op_stats.summarize(cell.fn, *cell.args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = {k: v.launches for k, v in build.KERNELS.items()
+                    if v.launches}
+        for k in build.KERNELS:
+            launches[k] += build.KERNELS[k].launches
+        check(all(bool(torch.isfinite(t).all())
+                  for t in op_stats.tensors_of(out) if t.is_floating_point()),
+              f"dryrun {label}: output not finite")
+        del out
+        check(dry.flops_by_dtype == real.flops_by_dtype,
+              f"dryrun {label}: FLOPs {dry.flops_by_dtype} != "
+              f"{real.flops_by_dtype}")
+        check(dry.kernels == real.kernels == launched,
+              f"dryrun {label}: kernel calls {dry.kernels} / "
+              f"{real.kernels} / launched {launched}")
+        ts = []
+        for i in range(DRY_STEPS + 2):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            cell.fn(*cell.args)
+            e.record()
+            e.synchronize()
+            if i >= 2:
+                ts.append(s.elapsed_time(e))
+        line = {"cell": label, "arch": arch, "shape": shape, "cut": cut,
+                **kw, "layers": layers, "trace_s": trace_s,
+                "flops_by_dtype": dry.flops_by_dtype,
+                "dot_bytes": dry.dot_bytes, "real_dot_bytes": real.dot_bytes,
+                "kernels": dry.kernels, "launches": launched,
+                "argument_bytes": dry.argument_bytes,
+                "predicted_peak_bytes": dry.peak_bytes,
+                "measured_peak_bytes": peak,
+                "predicted_ms": max(roof["compute_s"],
+                                    roof["memory_s"]) * 1e3,
+                "compute_ms": roof["compute_s"] * 1e3,
+                "memory_ms": roof["memory_s"] * 1e3,
+                "measured_ms": statistics.median(ts)}
+        lines.append(line)
+        print("dryrun " + json.dumps(line), flush=True)
+        del cell
+        torch.cuda.empty_cache()
+    for k in ("masked_sls", "dot_interaction", "fused_front_end"):
+        check(launches[k] > 0, f"dryrun phase: {k} never launched")
+
+    fits = []
+    for label, arch, shape, changes, cut, want in DRY_FITS:
+        cfg = _cut_cfg(get_config(arch), changes)
+        sh = dataclasses.replace(cfg.shapes()[shape], **cut)
+        t = time.perf_counter()
+        _, s, layers = dryrun.count_cell(arch, shape, "cuda", cfg=cfg,
+                                         shape=sh)
+        total = s.argument_bytes + s.peak_bytes
+        got = total < dryrun.CARD_BYTES
+        rec = {"cell": label, "layers": layers, "argument_bytes":
+               s.argument_bytes, "temp_bytes": s.peak_bytes,
+               "total_bytes": total, "fits_80gb": got,
+               "trace_s": time.perf_counter() - t}
+        fits.append(rec)
+        print("dryrun_fits " + json.dumps(rec), flush=True)
+        check(got == want, f"dryrun {label}: fits_80gb {got}, the smoke's "
+              f"cuts say {want}")
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{launches}", flush=True)
+    return lines, fits, launches
+
+
 PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
-          "recsys", "paper", "train", "lm", "lm_train", "gnn")
+          "recsys", "paper", "train", "lm", "lm_train", "gnn", "dryrun")
 
 
 def main(argv=None) -> None:
@@ -5203,7 +5399,8 @@ def main(argv=None) -> None:
                "train": lambda: train_phase(gen),
                "lm": lambda: lm_phase(gen),
                "lm_train": lambda: lm_train_phase(gen),
-               "gnn": lambda: gnn_phase(gen)}
+               "gnn": lambda: gnn_phase(gen),
+               "dryrun": lambda: dryrun_phase(gen)}
         for p in only:
             run[p]()
             torch.cuda.empty_cache()
@@ -5234,6 +5431,8 @@ def main(argv=None) -> None:
     lm_train_phase(gen)
     torch.cuda.empty_cache()
     gnn_phase(gen)
+    torch.cuda.empty_cache()
+    _, _, dry_launches = dryrun_phase(gen)
     torch.cuda.empty_cache()
     for d in details:
         print("timing " + json.dumps(d), flush=True)
@@ -5268,6 +5467,7 @@ def main(argv=None) -> None:
                 "faults_launches": fault_launches[k.name],
                 "paper_launches": paper_launches[k.name],
                 "train_launches": train_launches[k.name],
+                "dryrun_launches": dry_launches[k.name],
                 "shape": f"rmc4 fp32 whole store, {d['pages']} pages "
                          f"({d['hot_pages']} hot), 1 shard"})
             continue
@@ -5282,6 +5482,7 @@ def main(argv=None) -> None:
                 "runtime_launches": rt_launches[k.name],
                 "paper_launches": paper_launches[k.name],
                 "train_launches": train_launches[k.name],
+                "dryrun_launches": dry_launches[k.name],
                 "shape": f"rmc4 fp32 {d['rows']} rows x {d['dim']} "
                          f"({d['hot_rows']} hot), library index_add_ per "
                          "tier"})
@@ -5313,6 +5514,7 @@ def main(argv=None) -> None:
             "runtime_launches": rt_launches[k.name], **rec_extra,
             "paper_launches": paper_launches[k.name],
             "train_launches": train_launches[k.name],
+            "dryrun_launches": dry_launches[k.name],
             "shape": f"rmc4 fp32 batch 2048 ({row}, "
                      f"{d.get('n_shards', 1)} shard(s))"})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

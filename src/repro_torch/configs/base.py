@@ -3,7 +3,7 @@
 A copy of ``repro.configs.base``: ``get_config(name)`` resolves a registry
 id (the ``--arch`` string), ``reduced(cfg)`` shrinks a config to something
 a CPU test runs in seconds, ``reduced_shape`` does the same for a shape
-descriptor.  The dry-run's ``iter_cells`` is not ported.
+descriptor, and ``iter_cells`` lists the dry-run's (arch, shape) cells.
 """
 from __future__ import annotations
 
@@ -224,6 +224,22 @@ def list_archs(assigned_only: bool = True) -> List[str]:
     if assigned_only:
         names = [n for n in names if not n.startswith("rmc")]
     return names
+
+
+def iter_cells() -> List[Tuple[str, str, Optional[str]]]:
+    """All 40 (arch, shape) dry-run cells with skip reasons where mandated
+    (the reference's list, strings included)."""
+    _ensure_loaded()
+    cells: List[Tuple[str, str, Optional[str]]] = []
+    for name in list_archs():
+        cfg = _REGISTRY[name]
+        for sname, shape in cfg.shapes().items():
+            skip = None
+            if getattr(shape, "subquadratic_only", False) and cfg.family == "lm":
+                skip = ("full-attention arch: long_500k requires sub-quadratic "
+                        "attention (see DESIGN.md section 5)")
+            cells.append((name, sname, skip))
+    return cells
 
 
 def reduced(cfg: Config) -> Config:

@@ -51,7 +51,7 @@ from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
                                      host, initial_page_table, locate,
                                      placement_gather_indices)
 from repro_torch.core.planner import PlannerConfig, plan
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, is_fake, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import shard_sum
 
@@ -146,8 +146,13 @@ class PIFSEmbeddingEngine:
         shard = table.page_to_shard.long()
         slot = table.page_to_slot.long()
         off = torch.arange(ps, device=self.device)
-        cold_pages = torch.nonzero(shard != HOT_SHARD)[:, 0]
-        hot_pages = torch.nonzero(shard == HOT_SHARD)[:, 0]
+        if is_fake(shard):
+            # a dry-run places as initial_page_table does: every page cold
+            cold_pages = torch.arange(c.num_pages, device=self.device)
+            hot_pages = cold_pages[:0]
+        else:
+            cold_pages = torch.nonzero(shard != HOT_SHARD)[:, 0]
+            hot_pages = torch.nonzero(shard == HOT_SHARD)[:, 0]
         cold_base = (shard * c.rows_per_shard + slot * ps)[cold_pages]
         hot_base = (slot * ps)[hot_pages]
         return ((cold_base[:, None] + off).reshape(-1),
@@ -156,6 +161,24 @@ class PIFSEmbeddingEngine:
                 (hot_pages[:, None] * ps + off).reshape(-1))
 
     # ------------------------------------------------------------------ init
+    def state_shapes(self, device: DeviceLike = None) -> EngineState:
+        """Empty tensors shaped and typed as :meth:`init_state` builds them
+        (the reference's ``state_shapes``), on ``device`` (default: the
+        engine's).  Under a ``FakeTensorMode`` they are fake and nothing
+        is allocated: a dry-run's engine state."""
+        c = self.cfg
+        dev = self.device if device is None else resolve_device(device)
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return EngineState(
+            cold=empty((c.cold_rows_total, c.dim), self.cold_dtype),
+            hot=empty((c.hot_rows, c.dim), torch.float32),
+            page_scales=empty((c.num_pages,), torch.float32),
+            page_to_shard=empty((c.num_pages,), torch.int32),
+            page_to_slot=empty((c.num_pages,), torch.int32),
+            counts=empty((c.num_pages,), torch.float32))
+
     def init_state(self, generator: torch.Generator, scale: float = 0.01,
                    table: Optional[PageTable] = None) -> EngineState:
         """Random-init tables from ``generator`` (normal * ``scale``,
@@ -255,7 +278,10 @@ class PIFSEmbeddingEngine:
         """Strict-mode guard: raise on ids outside the padded address
         space (an out-of-range id would serve a clamped row).  Takes a
         tensor or a host array (``ServeBinding.execute`` checks the host
-        batch before it reaches the card)."""
+        batch before it reaches the card).  A dry-run's fake ids are not
+        checked: they have no values."""
+        if is_fake(indices):
+            return
         idx = host(indices)
         bad = (idx < 0) | (idx >= self.cfg.padded_rows)
         if bad.any():
@@ -420,19 +446,26 @@ class PIFSEmbeddingEngine:
                 BB //= 2
             staging_bytes = 2 * n_entries * D * 4 + 2 * BB * (G + 1) * D * 4
         capacity_ok = staging_bytes <= self.dedup_staging_bytes
-        expected = self._expected_dup_factor(host(state.counts), n_entries)
-        measured = self.dedup_factor(state, indices)["factor"]
+        if is_fake(state.counts) or is_fake(indices):
+            # a dry-run has no histogram and no ids: only the serving hint
+            # is evidence, and without it 'auto' stays off, the step
+            # builders' default
+            expected = measured = None
+        else:
+            expected = self._expected_dup_factor(host(state.counts),
+                                                 n_entries)
+            measured = self.dedup_factor(state, indices)["factor"]
         if dedup == "on":
             resolved = capacity_ok
         else:
             signals = [x for x in (expected, measured, self.dedup_auto_hint)
                        if x is not None]
-            resolved = capacity_ok and max(signals) >= \
+            resolved = capacity_ok and bool(signals) and max(signals) >= \
                 self.dedup_auto_threshold
         self._dedup_plans[key] = {
             "requested": dedup, "resolved": bool(resolved),
             "capacity_ok": bool(capacity_ok),
-            "expected_factor": float(expected),
+            "expected_factor": None if expected is None else float(expected),
             "measured_factor": measured,
             "hint_factor": self.dedup_auto_hint,
         }

@@ -1,5 +1,13 @@
 """SparseLengthSum (SLS) building blocks of the engine -- the paper's hot
-operator (a port of the dense-bag half of ``repro.core.sls``).
+operator (the port of ``repro.core.sls``).
+
+The reference's standalone forms come first: :func:`sls_ref` (flat bags:
+``indices (N,)``, ``segment_ids (N,)``), :func:`sls_dense_ref` (dense bags
+``(B, L)``), the per-shard :func:`masked_partial_sls` and
+:func:`bags_to_flat`, in plain PyTorch with the reference's semantics: a
+row id reads as ``jnp.take`` reads it (wrapped once if negative, a NaN
+row outside the table) and a segment id outside ``[0, num_bags)`` is
+dropped, as ``segment_sum`` drops it.
 
 Dense form: ``local_rows (B, L)`` with an ownership mask and optional
 weights; padding entries carry weight 0.  Every path accumulates in the
@@ -84,6 +92,82 @@ def dedup_plan(local_rows: torch.Tensor, owned: torch.Tensor,
                                                              ss)
     return DedupPlan(unique_rows, slots.reshape(B, L), n_slots, n_unique,
                      unique_scales)
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)``: an id in ``[-V, 0)`` wraps once,
+    one outside ``[-V, V)`` reads a NaN row."""
+    V = table.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + V, idx)
+    ok = (idx >= 0) & (idx < V)
+    rows = table[idx.clamp(0, max(V - 1, 0))]
+    return torch.where(ok[..., None], rows, torch.full_like(rows,
+                                                            float("nan")))
+
+
+def _segment_sum(rows: torch.Tensor, segment_ids: torch.Tensor,
+                 num_bags: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: rows summed into their segments in index
+    order; a segment id outside ``[0, num_bags)`` is dropped."""
+    seg = segment_ids.long()
+    ok = (seg >= 0) & (seg < num_bags)
+    out = torch.zeros((num_bags,) + rows.shape[1:], dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_add_(0, torch.where(ok, seg, 0),
+                          torch.where(ok[:, None], rows,
+                                      torch.zeros_like(rows)))
+
+
+def sls_ref(table: torch.Tensor, indices: torch.Tensor,
+            segment_ids: torch.Tensor, num_bags: int,
+            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference SLS, flat form: ``out[b] = sum_{i: seg[i]==b} w[i] *
+    table[idx[i]]`` -> (num_bags, D) in the table's dtype."""
+    rows = _take(table, indices)
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    return _segment_sum(rows, segment_ids, num_bags)
+
+
+def sls_dense_ref(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense-form SLS: indices (B, L) -> (B, D) in the table's dtype."""
+    rows = _take(table, indices)                        # (B, L, D)
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    out = torch.zeros_like(rows[:, 0])
+    for l in range(rows.shape[1]):     # the reference's reduce, in l order
+        out = out + rows[:, l]
+    return out
+
+
+def masked_partial_sls(local_storage: torch.Tensor, local_rows: torch.Tensor,
+                       owned: torch.Tensor, segment_ids: torch.Tensor,
+                       num_bags: int,
+                       weights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Per-shard partial SLS, flat form: accumulate only the rows this
+    shard owns (the paper's Process Core: the reduction happens where the
+    rows live; only the pooled (num_bags, D) partial leaves the shard).
+    A non-owned entry reads row 0 and weighs 0."""
+    safe = torch.where(owned, local_rows, torch.zeros_like(local_rows))
+    rows = _take(local_storage, safe)
+    w = owned.to(rows.dtype)
+    if weights is not None:
+        w = w * weights.to(rows.dtype)
+    return _segment_sum(rows * w[:, None], segment_ids, num_bags)
+
+
+def bags_to_flat(indices: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None):
+    """(B, L) dense bags -> ``(flat (N,), segment_ids (N,) int32, B,
+    weights (N,) or None)``."""
+    B, L = indices.shape
+    seg = torch.arange(B, dtype=torch.int32,
+                       device=indices.device).repeat_interleave(L)
+    return (indices.reshape(-1), seg, B,
+            None if weights is None else weights.reshape(-1))
 
 
 def _stacked_rows(local_rows: torch.Tensor, S: int, R: int) -> torch.Tensor:

@@ -4,8 +4,16 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def is_fake(t) -> bool:
+    """A dry-run's stand-in (``FakeTensor``): shapes without data.  Code
+    that reads a tensor's values on the host takes a static form for it
+    (``launch/dryrun.py``); a real tensor never does."""
+    return isinstance(t, FakeTensor)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

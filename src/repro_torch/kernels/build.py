@@ -22,9 +22,13 @@ returns ``cudaGetLastError()`` after its launch.
 
 ``KERNELS`` is the registry: what each kernel replaces and how often its
 wrapper launched it (a plain integer the wrapper bumps at each launch).
+:func:`kernel_call` reports each call of a kernel, on any route (launch,
+plain version or a fake tensor's shape function), to the counters in
+``SINKS`` (``launch/op_stats.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -32,7 +36,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -88,6 +92,24 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
                "src/repro/core/pifs.py:1394 (_build_checksum_plan.block: "
                "jnp, no Pallas kernel)"),
 )}
+
+# active call counters: each has kernel_enter(name) and kernel_exit(name)
+SINKS: List = []
+
+
+@contextlib.contextmanager
+def kernel_call(name: str):
+    """One call of kernel ``name``, whatever its route: every sink in
+    ``SINKS`` sees it enter and leave (the plain version's own operations
+    run in between)."""
+    for s in SINKS:
+        s.kernel_enter(name)
+    try:
+        yield
+    finally:
+        for s in SINKS:
+            s.kernel_exit(name)
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}

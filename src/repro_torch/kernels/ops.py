@@ -8,6 +8,15 @@ version on any device (the counterpart of the reference's ``impl='jnp'``;
 ``chip_smoke.py`` uses it to hold the kernels against their plain
 versions on the card).
 
+Fake tensors.  A ``FakeTensor`` (``torch._subclasses.fake_tensor``, the
+dry-run's stand-in that allocates nothing) with ``impl="cuda"`` takes the
+kernel's shape function in ``kernels/fake.py``, whatever device it names:
+empty outputs of the kernel's shape and layout.  Only a fake tensor does:
+a real CUDA tensor launches or raises, a real CPU tensor takes the plain
+version.  Every call, on any route, is one ``build.kernel_call`` event, so
+a counter (``launch/op_stats.py``) counts a kernel once, as one opaque op,
+whether it launched, ran its plain version or was faked.
+
 Alignment on Hopper.  The reference pads D to the TPU's 128 lanes
 (``repro/kernels/ops.py:pad_to_lanes``); nothing here pads.  A Hopper
 kernel only wants 16-byte row chunks for vector loads: when D * itemsize
@@ -31,7 +40,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.kernels import build
+from repro_torch.kernels import fake
 from repro_torch.kernels import integrity as _integrity
 from repro_torch.kernels import interaction as _interaction
 from repro_torch.kernels import ref
@@ -49,10 +61,16 @@ def reset_backwards() -> None:
         BACKWARDS[k] = 0
 
 
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+def _route(impl: str, t: torch.Tensor) -> str:
+    """'kernel' (a real CUDA tensor, impl 'cuda'), 'fake' (a fake tensor,
+    impl 'cuda') or 'plain'."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    return impl == "cuda" and t.device.type == "cuda"
+    if impl != "cuda":
+        return "plain"
+    if isinstance(t, FakeTensor):
+        return "fake"
+    return "kernel" if t.device.type == "cuda" else "plain"
 
 
 def _wants_grad(t: Optional[torch.Tensor]) -> bool:
@@ -75,10 +93,14 @@ def _no_grad_route(what: str, *tensors: Optional[torch.Tensor]) -> None:
 
 
 def _masked_sls(table, indices, owned, weights, scales, impl):
-    if _use_kernel(impl, table):
-        return _sls.masked_sls(table, indices, owned, weights, scales)
-    return ref._fixed_order_masked_sls(table, indices, owned, weights,
-                                       scales)
+    with build.kernel_call("masked_sls"):
+        route = _route(impl, table)
+        if route == "kernel":
+            return _sls.masked_sls(table, indices, owned, weights, scales)
+        if route == "fake":
+            return fake.masked_sls(table, indices, owned, weights, scales)
+        return ref._fixed_order_masked_sls(table, indices, owned, weights,
+                                           scales)
 
 
 class _MaskedSLS(torch.autograd.Function):
@@ -112,14 +134,41 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
     return _masked_sls(table, indices, owned, weights, scales, impl)
 
 
+def sls(table: torch.Tensor, indices: torch.Tensor,
+        weights: Optional[torch.Tensor] = None,
+        impl: str = "cuda") -> torch.Tensor:
+    """Plain SLS, the reference's ``sls`` (its ``sls_pallas``): (N, L)
+    bags -> (N, D) float32, ``out[b] = sum_l w[b,l] * table[idx[b,l]]``.
+    On the card the masked_sls kernel with no mask; the plain version is
+    ``ref.sls_ref``.  No gradient (the reference's train steps reach the
+    masked form only)."""
+    _sls.check_masked_sls(table, indices, None, weights, None)
+    _no_grad_route("sls", table, weights)
+    with build.kernel_call("masked_sls"):
+        route = _route(impl, table)
+        if route == "kernel":
+            return _sls.masked_sls(table, indices, None, weights)
+        if route == "fake":
+            return fake.masked_sls(table, indices, None, weights)
+        return ref.sls_ref(table, indices, weights)
+
+
+def _dot_interaction(feats, self_interaction, impl):
+    with build.kernel_call("dot_interaction"):
+        route = _route(impl, feats)
+        if route == "kernel":
+            return _interaction.dot_interaction(feats, self_interaction)
+        if route == "fake":
+            return fake.dot_interaction(feats, self_interaction)
+        return ref.dot_interaction_ref(feats, self_interaction)
+
+
 class _DotInteraction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, self_interaction, impl):
         ctx.save_for_backward(feats)
         ctx.self_interaction = self_interaction
-        if _use_kernel(impl, feats):
-            return _interaction.dot_interaction(feats, self_interaction)
-        return ref.dot_interaction_ref(feats, self_interaction)
+        return _dot_interaction(feats, self_interaction, impl)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -137,9 +186,7 @@ def dot_interaction(feats: torch.Tensor, self_interaction: bool = False,
     _interaction.check_dot_interaction(feats)
     if _wants_grad(feats):
         return _DotInteraction.apply(feats, self_interaction, impl)
-    if _use_kernel(impl, feats):
-        return _interaction.dot_interaction(feats, self_interaction)
-    return ref.dot_interaction_ref(feats, self_interaction)
+    return _dot_interaction(feats, self_interaction, impl)
 
 
 def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
@@ -152,11 +199,14 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
     _sls.check_fused_front_end(cold, hot, x, rows, owned, is_hot, weights,
                                scales)
     _no_grad_route("fused_front_end", cold, hot, x, weights)
-    if _use_kernel(impl, cold):
-        return _sls.fused_front_end(cold, hot, x, rows, owned, is_hot,
-                                    weights, scales)
-    return ref.fused_front_end_ref(cold, hot, x, rows, owned, is_hot,
-                                   weights, scales)
+    args = (cold, hot, x, rows, owned, is_hot, weights, scales)
+    with build.kernel_call("fused_front_end"):
+        route = _route(impl, cold)
+        if route == "kernel":
+            return _sls.fused_front_end(*args)
+        if route == "fake":
+            return fake.fused_front_end(*args)
+        return ref.fused_front_end_ref(*args)
 
 
 def masked_sls_dedup(table: torch.Tensor, plan, owned: torch.Tensor,
@@ -175,12 +225,16 @@ def masked_sls_dedup(table: torch.Tensor, plan, owned: torch.Tensor,
 
 
 def _masked_sls_dedup(table, plan, owned, weights, impl):
-    if _use_kernel(impl, table):
-        return _sls.masked_sls_dedup(table, plan.unique_rows, plan.slots,
-                                     owned, plan.n_slots, weights,
-                                     plan.unique_scales)
-    return ref.masked_sls_dedup_ref(table, plan.unique_rows, plan.slots,
-                                    owned, weights, plan.unique_scales)
+    args = (table, plan.unique_rows, plan.slots, owned, plan.n_slots,
+            weights, plan.unique_scales)
+    with build.kernel_call("masked_sls_dedup"):
+        route = _route(impl, table)
+        if route == "kernel":
+            return _sls.masked_sls_dedup(*args)
+        if route == "fake":
+            return fake.masked_sls_dedup(*args)
+        return ref.masked_sls_dedup_ref(table, plan.unique_rows, plan.slots,
+                                        owned, weights, plan.unique_scales)
 
 
 class _MaskedSLSDedup(torch.autograd.Function):
@@ -218,11 +272,15 @@ def fused_front_end_dedup(cold: torch.Tensor, hot: torch.Tensor,
             cp.unique_scales)
     _sls.check_fused_front_end_dedup(*args)
     _no_grad_route("fused_front_end_dedup", cold, hot, x, weights)
-    if _use_kernel(impl, cold):
-        return _sls.fused_front_end_dedup(*args)
-    return ref.fused_front_end_dedup_ref(
-        cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
-        owned, is_hot, weights, cp.unique_scales)
+    with build.kernel_call("fused_front_end_dedup"):
+        route = _route(impl, cold)
+        if route == "kernel":
+            return _sls.fused_front_end_dedup(*args)
+        if route == "fake":
+            return fake.fused_front_end_dedup(*args)
+        return ref.fused_front_end_dedup_ref(
+            cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
+            owned, is_hot, weights, cp.unique_scales)
 
 
 def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
@@ -241,12 +299,15 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
     _sls.check_fused_partial_pool(cold, hot, x, rows, own4, is_hot, weights,
                                   scales)
     _no_grad_route("fused_partial_pool", cold, hot, x, weights)
-    if _use_kernel(impl, cold):
-        part_c, part_h = _sls.fused_partial_pool(cold, hot, x, rows, own4,
-                                                 is_hot, weights, scales)
+    with build.kernel_call("fused_partial_pool"):
+        route = _route(impl, cold)
+        if route == "plain":
+            return ref.fused_partial_pool_ref(cold, hot, x, rows, owned,
+                                              is_hot, weights, scales)
+        part_c, part_h = (_sls if route == "kernel" else fake) \
+            .fused_partial_pool(cold, hot, x, rows, own4, is_hot, weights,
+                                scales)
         return (part_c[0] if one else part_c), part_h
-    return ref.fused_partial_pool_ref(cold, hot, x, rows, owned, is_hot,
-                                      weights, scales)
 
 
 def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
@@ -266,12 +327,15 @@ def fused_partial_pool_dedup(cold: torch.Tensor, hot: torch.Tensor,
             hp.slots, hp.n_slots, own4, is_hot, weights, cp.unique_scales)
     _sls.check_fused_partial_pool_dedup(*args)
     _no_grad_route("fused_partial_pool_dedup", cold, hot, x, weights)
-    if _use_kernel(impl, cold):
-        part_c, part_h = _sls.fused_partial_pool_dedup(*args)
+    with build.kernel_call("fused_partial_pool_dedup"):
+        route = _route(impl, cold)
+        if route == "plain":
+            return ref.fused_partial_pool_dedup_ref(
+                cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows,
+                hp.slots, owned, is_hot, weights, cp.unique_scales)
+        part_c, part_h = (_sls if route == "kernel" else fake) \
+            .fused_partial_pool_dedup(*args)
         return (part_c[0] if one else part_c), part_h
-    return ref.fused_partial_pool_dedup_ref(
-        cold, hot, x, cp.unique_rows, cp.slots, hp.unique_rows, hp.slots,
-        owned, is_hot, weights, cp.unique_scales)
 
 
 def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor,
@@ -282,9 +346,13 @@ def fused_resume(part_c: torch.Tensor, part_h: torch.Tensor,
     c4 = part_c[None] if part_c.dim() == 3 else part_c
     _interaction.check_fused_resume(c4, part_h)
     _no_grad_route("fused_resume", part_c, part_h)
-    if _use_kernel(impl, part_h):
-        return _interaction.fused_resume(c4, part_h)
-    return ref.fused_resume_ref(part_c, part_h)
+    with build.kernel_call("fused_resume"):
+        route = _route(impl, part_h)
+        if route == "kernel":
+            return _interaction.fused_resume(c4, part_h)
+        if route == "fake":
+            return fake.fused_resume(c4, part_h)
+        return ref.fused_resume_ref(part_c, part_h)
 
 
 def apply_deltas(cold: torch.Tensor, hot: torch.Tensor,
@@ -297,14 +365,16 @@ def apply_deltas(cold: torch.Tensor, hot: torch.Tensor,
     domain, through one fma); a negative row is a pad."""
     _updates.check_apply_deltas(cold, hot, page_scales, page_to_shard,
                                 page_to_slot, rows, deltas)
-    if _use_kernel(impl, cold):
-        _updates.apply_deltas(cold, hot, page_scales, page_to_shard,
-                              page_to_slot, rows, deltas, page_size,
-                              rows_per_shard)
-    else:
-        ref.apply_deltas_ref(cold, hot, page_scales, page_to_shard,
-                             page_to_slot, rows, deltas, page_size,
-                             rows_per_shard)
+    args = (cold, hot, page_scales, page_to_shard, page_to_slot, rows,
+            deltas, page_size, rows_per_shard)
+    with build.kernel_call("apply_deltas"):
+        route = _route(impl, cold)
+        if route == "kernel":
+            _updates.apply_deltas(*args)
+        elif route == "fake":
+            fake.apply_deltas(*args)
+        else:
+            ref.apply_deltas_ref(*args)
 
 
 def page_checksums(cold: torch.Tensor, hot: torch.Tensor,
@@ -317,10 +387,12 @@ def page_checksums(cold: torch.Tensor, hot: torch.Tensor,
     a pad and gets zeros."""
     _integrity.check_page_checksums(cold, hot, page_scales, page_to_shard,
                                     page_to_slot, pages)
-    if _use_kernel(impl, cold):
-        return _integrity.page_checksums(cold, hot, page_scales,
-                                         page_to_shard, page_to_slot, pages,
-                                         page_size, rows_per_shard)
-    return ref.page_checksums_ref(cold, hot, page_scales, page_to_shard,
-                                  page_to_slot, pages, page_size,
-                                  rows_per_shard)
+    args = (cold, hot, page_scales, page_to_shard, page_to_slot, pages,
+            page_size, rows_per_shard)
+    with build.kernel_call("page_checksums"):
+        route = _route(impl, cold)
+        if route == "kernel":
+            return _integrity.page_checksums(*args)
+        if route == "fake":
+            return fake.page_checksums(*args)
+        return ref.page_checksums_ref(*args)

@@ -22,11 +22,13 @@ import torch
 def sls_ref(table: torch.Tensor, indices: torch.Tensor,
             weights: Optional[torch.Tensor] = None,
             out_dtype=torch.float32) -> torch.Tensor:
-    """SparseLengthSum: out[b] = sum_l w[b,l] * table[idx[b,l]]."""
+    """SparseLengthSum: out[b] = sum_l w[b,l] * table[idx[b,l]], summed in
+    the order l = 0..L-1 as the reference's reduce sums (the plain version
+    of ``ops.sls``)."""
     rows = table[indices.long()].to(out_dtype)                  # (B, L, D)
-    if weights is not None:
-        rows = rows * weights[..., None].to(out_dtype)
-    return rows.sum(dim=1)
+    f = (torch.ones(indices.shape, dtype=out_dtype, device=indices.device)
+         if weights is None else weights.to(out_dtype))
+    return _fixed_order_accumulate(rows, f)
 
 
 def masked_sls_ref(table: torch.Tensor, indices: torch.Tensor,

@@ -148,6 +148,21 @@ def make_train_step(model: DLRM, engine: PIFSEmbeddingEngine, optimizer,
         optimizer, emb_optimizer)
 
 
+def input_specs(cfg: DLRMConfig, batch: int, with_labels: bool,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A dry-run's batch: empty tensors with the reference's keys, shapes
+    and dtypes (fake under the caller's ``FakeTensorMode``)."""
+    dev = resolve_device(device)
+    T, L = cfg.n_tables, cfg.pooling
+    out = {"dense": torch.empty((batch, cfg.n_dense), dtype=torch.float32,
+                                device=dev),
+           "indices": torch.empty((batch, T, L), dtype=torch.int32,
+                                  device=dev)}
+    if with_labels:
+        out["labels"] = torch.empty((batch,), dtype=torch.int32, device=dev)
+    return out
+
+
 def params_from_numpy(tree: dict, device: Optional[DeviceLike] = None
                       ) -> Dict[str, torch.Tensor]:
     """The reference's param tree with numpy leaves (``{"bottom":

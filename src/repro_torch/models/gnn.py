@@ -27,18 +27,19 @@ Regimes: ``full`` (Cora / ogbn-products shapes), ``minibatch`` (Reddit:
 a host-side CSR sampler, :func:`make_sampler`, emits fixed-shape (B, f1),
 (B, f1, f2) id tensors) and ``molecule`` (a batch of small graphs: one
 segment sum over the batch with per-graph node offsets, where the
-reference maps over the graphs).  The dry-run stand-ins ``input_specs`` /
-``input_pspecs`` are not ported.
+reference maps over the graphs).  A dry-run's fake edges keep every edge
+(exact for ids in range); :func:`input_specs` gives its stand-in batches
+(``input_pspecs`` has nothing to shard on one card).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, is_fake, resolve_device
 from repro_torch.models.params import Spec, initialize_specs
 
 # gathered rows per aggregation chunk, in bytes
@@ -156,10 +157,18 @@ def graph_edges(edges, n_nodes: int) -> Dict[str, Any]:
     (no row, no degree), and the degree of each node counts the rest."""
     e = torch.as_tensor(edges)
     src, dst = e[:, 0].long(), e[:, 1].long()
-    keep = (src >= 0) & (src < n_nodes) & (dst >= 0) & (dst < n_nodes)
-    src, dst = src[keep], dst[keep]
-    deg = torch.bincount(dst, minlength=n_nodes).to(torch.float32)
-    return {"src": src, "dst": dst, "deg": deg}
+    if not is_fake(e):     # a dry-run keeps every edge: exact in range
+        keep = (src >= 0) & (src < n_nodes) & (dst >= 0) & (dst < n_nodes)
+        src, dst = src[keep], dst[keep]
+    return {"src": src, "dst": dst,
+            "deg": _degrees(dst, n_nodes, torch.float32)}
+
+
+def _degrees(dst: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """In-degrees of ``n`` nodes (a dry-run's fake ids: the shape only)."""
+    if is_fake(dst):
+        return dst.new_zeros(n, dtype=dtype)
+    return torch.bincount(dst, minlength=n).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +272,17 @@ def molecule_forward(params: dict, feats: torch.Tensor, edges,
     bad = ((src < 0) | (src >= n)).reshape(-1)
     src = (src.clamp(0, n - 1) + off).reshape(-1)
     keep = ((e[..., 1] >= 0) & (e[..., 1] < n)).reshape(-1)
-    dst = (e[..., 1] + off).reshape(-1)[keep]
-    deg = torch.bincount(dst, minlength=G * n).to(feats.dtype)
+    dst = (e[..., 1] + off).reshape(-1)
+    fake = is_fake(e)              # a dry-run keeps every edge, no NaN row
+    if not fake:
+        dst = dst[keep]
+    deg = _degrees(dst, G * n, feats.dtype)
     norm = deg.clamp_min(1.0)[:, None]
-    src_k = src[keep]
+    src_k = src if fake else src[keep]
     # the reference's take fills a NaN row for a bad src: its dst sums to
     # NaN
     nan_dst = None
-    if bool(bad.any()):
+    if not fake and bool(bad.any()):
         nan_dst = torch.zeros(G * n, dtype=torch.bool, device=feats.device)
         nan_dst[dst[bad[keep]]] = True
     h = feats.reshape(G * n, -1)
@@ -285,6 +297,35 @@ def molecule_forward(params: dict, feats: torch.Tensor, edges,
 # ---------------------------------------------------------------------------
 # Losses / steps
 # ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: GNNConfig, shape, pad_nodes: Optional[int] = None,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A dry-run's batch per GNN shape descriptor: empty tensors with the
+    reference's keys, shapes and dtypes (``pad_nodes`` replaces the node
+    count of the full and minibatch graphs), fake under the caller's
+    ``FakeTensorMode``."""
+    dev = resolve_device(device)
+
+    def empty(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device=dev)
+    f32 = torch.float32
+    if shape.kind == "full":
+        N = pad_nodes or shape.n_nodes
+        return {"feats": empty((N, shape.d_feat), f32),
+                "edges": empty((shape.n_edges, 2)),
+                "labels": empty((N,))}
+    if shape.kind == "minibatch":
+        N = pad_nodes or shape.n_nodes
+        B = shape.batch_nodes
+        f1, f2 = shape.fanout
+        return {"feats": empty((N, shape.d_feat), f32),
+                "roots": empty((B,)), "hop1": empty((B, f1)),
+                "hop2": empty((B, f1, f2)), "labels": empty((B,))}
+    G = shape.graph_batch
+    return {"feats": empty((G, shape.n_nodes, shape.d_feat), f32),
+            "edges": empty((G, shape.n_edges, 2)),
+            "labels": empty((G,))}
 
 
 def _xent(logits: torch.Tensor, labels) -> torch.Tensor:

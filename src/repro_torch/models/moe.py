@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.device import is_fake
 from repro_torch.models.params import Spec
 
 
@@ -73,17 +74,27 @@ def _moe_block(x, wr, w_gate, w_up, w_down, cfg: LMConfig,
     probs = torch.softmax(tokens.float() @ wr, dim=-1)          # (n, E)
     gate, eids = top_k(probs, k)                                # (n, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    # aux load-balance loss (GShard): E * sum_e f_e * p_e
-    fe = torch.bincount(eids.reshape(-1), minlength=E).float() / (n * k)
+    # aux load-balance loss (GShard): E * sum_e f_e * p_e.  A dry-run's
+    # fake ids give the rows per expert their shape only
+    flat = eids.reshape(-1)
+    fake = is_fake(flat)
+    hits = (flat.new_zeros(E) if fake
+            else torch.bincount(flat, minlength=E))
+    fe = hits.float() / (n * k)
     aux = E * (probs.mean(0) * fe).sum() * moe.router_aux_weight
 
     # ---- grouped GEMM over the copies sorted by expert ----
     # slot j = t * k + i is token t's i-th choice.  The reference also
     # carries cap - n * k empty slots (zero rows through expert 0, never
     # read back); they are skipped here.
-    flat = eids.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=E).tolist()   # the host's loop
+    if fake:
+        # a dry-run: the n * k rows split evenly over the experts, which
+        # gives the real run's grouped-GEMM FLOPs whatever the routing
+        q, r = divmod(n * k, E)
+        counts = [q + (e < r) for e in range(E)]
+    else:
+        counts = hits.tolist()                            # the host's loop
     if stats is not None:
         stats.setdefault("experts_hit", []).append(
             sum(c > 0 for c in counts))

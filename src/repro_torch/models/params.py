@@ -7,7 +7,8 @@ zeros; ``pos_emb`` normal * 0.02; the rest normal * 1/sqrt(fan_in).
 
 LM: the reference's declarative tree of :class:`Spec` leaves (shape,
 dtype, init, scale; its ``pspec`` has no use on one card), with
-:func:`count_params` and :func:`initialize_specs`.
+:func:`count_params`, :func:`initialize_specs` and, for a dry-run,
+:func:`abstract`.
 
 The numbers come from an explicit ``torch.Generator`` and differ from the
 reference's JAX PRNG draws; tests carry the reference's weights across
@@ -22,6 +23,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.device import resolve_device
 
 _BIAS = re.compile(r"(_b|_b\d+|^b)$")
 
@@ -82,6 +85,22 @@ def spec_leaves(tree, prefix: str = ""):
 
 def count_params(tree) -> int:
     return sum(math.prod(s.shape) for _, s in spec_leaves(tree))
+
+
+def abstract(tree, device=None):
+    """The reference's ``abstract``: an empty tensor of each Spec's shape
+    and dtype on ``device`` (default: the card), in the tree's structure
+    (dicts and lists).  Nothing is drawn; under the caller's
+    ``FakeTensorMode`` the leaves are fake and nothing is allocated."""
+    dev = resolve_device(device)
+
+    def build(node):
+        if isinstance(node, Spec):
+            return torch.empty(node.shape, dtype=node.dtype, device=dev)
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return {k: build(v) for k, v in node.items()}
+    return build(tree)
 
 
 # elements drawn per call: a (256, 7168, 2048) expert stack is drawn in

@@ -450,6 +450,45 @@ def make_retrieval_step(model: RecModel, engine: PIFSEmbeddingEngine,
     return step
 
 
+def input_specs(cfg: RecConfig, shape_kind: str, batch: int,
+                n_candidates: int = 0, with_labels: bool = False,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A dry-run's batch: empty tensors with the reference's keys, shapes
+    and dtypes for a shape kind (fake under the caller's
+    ``FakeTensorMode``)."""
+    dev = resolve_device(device)
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    it = cfg.interaction
+    out: Dict[str, torch.Tensor] = {}
+    if it == "self-attn-seq":
+        out["seq"] = empty((batch, cfg.seq_len))
+        if shape_kind == "train":
+            out["pos"] = empty((batch, cfg.seq_len))
+            out["neg"] = empty((batch, cfg.seq_len))
+        elif shape_kind == "retrieval":
+            out["cand_ids"] = empty((n_candidates,))
+        else:
+            out["target"] = empty((batch,))
+    elif it == "transformer-seq":
+        out["seq"] = empty((batch, cfg.seq_len))
+        out["dense"] = empty((batch, cfg.n_dense), torch.float32)
+        if shape_kind == "retrieval":
+            out["cand_ids"] = empty((n_candidates,))
+        else:
+            out["target"] = empty((batch,))
+    else:
+        out["fields"] = empty((batch, cfg.n_sparse))
+        if cfg.n_dense:
+            out["dense"] = empty((batch, cfg.n_dense), torch.float32)
+        if shape_kind == "retrieval":
+            out["cand_ids"] = empty((n_candidates,))
+    if with_labels and shape_kind == "train" and it != "self-attn-seq":
+        out["labels"] = empty((batch,))
+    return out
+
+
 def params_from_numpy(tree, device: Optional[DeviceLike] = None,
                       prefix: str = "") -> Dict[str, torch.Tensor]:
     """The reference's param tree with numpy leaves (nested dicts, the
