@@ -4,15 +4,16 @@
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--out DIR]
 
 PARENT_DIR and CHANGE_DIR are checkouts (``git archive``) of two commits.
-This runs CHANGE_DIR's ``chip_smoke.py`` in both -- in PARENT_DIR it drives
-the parent's package, calling only the kernels' public wrappers -- in
-turns parent, change, change, parent, each run's output in
-``DIR/run<i>_<tree>.log`` (default ``build/ab``), and fails if a run
-fails.  Then it prints, for every ``timing`` row of ``chip_smoke.py``
-(kernel, configuration, batch, shards, and how the L2 was flushed), the
-mean time of the parent's two runs and of the change's two, change /
-parent, the bound and, where the row has one, the mean time of a copy of
-the same bytes over all runs; and for every
+This runs CHANGE_DIR's ``chip_smoke.py --only slice`` in both -- the build
+and the slice phase, which prints every row read here (about 95 s a run
+on an H100); in PARENT_DIR it drives the parent's package, calling only
+the kernels' public wrappers -- in turns parent, change, change, parent,
+each run's output in ``DIR/run<i>_<tree>.log`` (default ``build/ab``),
+and fails if a run fails.  Then it prints, for every ``timing`` row of
+``chip_smoke.py`` (kernel, configuration, batch, shards, and how the L2
+was flushed), the mean time of the parent's two runs and of the
+change's two, change / parent, the bound and, where the row has one,
+the mean time of a copy of the same bytes over all runs; and for every
 ``serve_step`` row the device operations and busy time per step, parent
 and change.  Each run prints the card's name and power limit first.
 """
@@ -32,8 +33,9 @@ def run(tree: Path, smoke: Path, log: Path) -> None:
     if dst.resolve() != smoke.resolve():
         shutil.copyfile(smoke, dst)
     with open(log, "w") as f:
-        rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
-                            stdout=f, stderr=subprocess.STDOUT).returncode
+        rc = subprocess.run([sys.executable, "chip_smoke.py", "--only",
+                             "slice"], cwd=tree, stdout=f,
+                            stderr=subprocess.STDOUT).returncode
     if rc != 0:
         print(log.read_text()[-4000:])
         raise SystemExit(f"chip_ab: chip_smoke.py failed in {tree} (rc={rc})")

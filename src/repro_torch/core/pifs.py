@@ -53,7 +53,7 @@ from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
 from repro_torch.core.planner import PlannerConfig, plan
 from repro_torch.device import DeviceLike, is_fake, resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import shard_sum
+from repro_torch.kernels.ref import clamp_rows, shard_sum
 
 FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
 #                      its fused staging budget counts
@@ -811,12 +811,11 @@ class PIFSEmbeddingEngine:
         wraps once if negative and is then clamped into the table; the
         offset in the page is ``idx % ps``.  So an id past the end reads
         a row of the last page, and nothing indexes out of bounds (which
-        on the card would be a device-side assert).  Clamping the page
-        into [-n, n) and then taking it mod n is that rule in two
-        elementwise operations."""
+        on the card would be a device-side assert).  That is the kernels'
+        row rule (``kernels/ref.py: clamp_rows``) applied to the page."""
         ps, n = self.cfg.page_size, self.cfg.num_pages
         idx = idx.long()
-        page = (idx // ps).clamp_(-n, n - 1).remainder_(n)
+        page = clamp_rows(idx // ps, n)
         shard = state.page_to_shard[page]
         local_row = (state.page_to_slot[page].long() * ps
                      + idx % ps).to(torch.int32)

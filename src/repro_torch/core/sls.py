@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import clamp_rows
 
 # Non-owned pooling entries are remapped to this sentinel before the
 # sort-based unique, so they (a) sort past every real row id and collapse
@@ -171,11 +172,14 @@ def bags_to_flat(indices: torch.Tensor,
 
 
 def _stacked_rows(local_rows: torch.Tensor, S: int, R: int) -> torch.Tensor:
-    """(..., L) rows local to a slice -> (S, ..., L) rows of the whole
-    tier, shard s's offset by its slice start s * R."""
+    """(..., L) ids local to a slice -> (S, ..., L) rows of the whole
+    tier: each id read against its slice's R rows (``clamp_rows``), then
+    shard s's offset by its slice start s * R, so that no id reads
+    another shard's slice."""
     base = torch.arange(0, S * R, R, dtype=torch.int32,
                         device=local_rows.device)
-    return local_rows[None] + base.view((S,) + (1,) * local_rows.dim())
+    return (clamp_rows(local_rows, R).to(torch.int32)[None]
+            + base.view((S,) + (1,) * local_rows.dim()))
 
 
 def masked_partial_sls_dense(local_storage: torch.Tensor,
@@ -316,8 +320,9 @@ def partial_pool_plans(cold_rows: int, local_rows: torch.Tensor,
                        owned: torch.Tensor, is_hot: torch.Tensor,
                        scales: Optional[torch.Tensor] = None):
     """The gather-once plans of a partial pool: one over every shard's
-    owned cold rows (rows of the whole ``cold_rows``-row tier; slots
-    shaped like ``owned``) and one over the hot rows (slots (B, G, L))."""
+    owned cold rows (rows of the whole ``cold_rows``-row tier, each id
+    read against its shard's slice; slots shaped like ``owned``) and one
+    over the hot rows (slots (B, G, L))."""
     B, G, L = local_rows.shape
     nb = B * G
     S = owned.shape[0] if owned.dim() == 4 else 1

@@ -64,6 +64,17 @@ __device__ __forceinline__ void accumulate(float* acc, float f, float* v,
   for (int k = 0; k < VEC; ++k) acc[k] = __fmaf_rn(f, v[k], acc[k]);
 }
 
+// The row of a V-row table that row id r names: r clamped into [-V, V - 1],
+// then taken mod V (an id in [-V, 0) wraps once, one below -V names row 0,
+// one past the end row V - 1).  Every kernel that takes row ids reads
+// them through it, as the plain versions do (kernels/ref.py: clamp_rows):
+// no id reads outside its table, and the sentinel INT32_MAX of a dedup
+// plan names row V - 1.
+__device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t V) {
+  r = r < -V ? -V : (r > V - 1 ? V - 1 : r);
+  return r < 0 ? r + V : r;
+}
+
 // The per-entry factor f = owned * w (owned in {0, 1}); the same product
 // the reference forms, so f is bitwise the reference's.
 __device__ __forceinline__ float entry_factor(bool own, const float* w,

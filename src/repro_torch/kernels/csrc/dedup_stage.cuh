@@ -11,7 +11,7 @@
 // The gather-once SLS and fused front end no longer stage: they read each
 // row through the plan (gather_once.cuh).
 //
-// staging[u] = float(table[min(uniq[u], V - 1)]) * scale[u]   for
+// staging[u] = float(table[clamp_row(uniq[u], V)]) * scale[u]   for
 // u < max(n_slots, 1), with n_slots read on the card (no host round trip).
 // The dequant product is rounded on its own (__fmul_rn), as the per-entry
 // kernels round it, so staged rows equal the rows those kernels gather.
@@ -54,9 +54,8 @@ __global__ void dedup_stage_tiers_kernel(
        t < n; t += static_cast<int64_t>(gridDim.x) * teams) {
     const bool is_cold = t < nc;
     const int64_t u = is_cold ? t : t - nc;
-    const int64_t r =
-        is_cold ? min(static_cast<int64_t>(__ldg(cuniq + u)), Vc - 1)
-                : min(static_cast<int64_t>(__ldg(huniq + u)), Vh - 1);
+    const int64_t r = is_cold ? clamp_row(__ldg(cuniq + u), Vc)
+                              : clamp_row(__ldg(huniq + u), Vh);
     for (int c = lane; c < chunks; c += team) {
       float v[VEC];
       if (is_cold) {

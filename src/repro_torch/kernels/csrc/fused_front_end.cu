@@ -7,7 +7,9 @@
 // fused_front_end_dedup_pallas (its pallas_call at :683), the same with
 // each tier's rows read through its dedup plan -- cold c_unique[c_slots[e]]
 // with its scale, hot h_unique[h_slots[e]] -- and no staging buffer
-// (gather_once.cuh).  The TPU grid (B/BB, G, L tiles) revisits one output
+// (gather_once.cuh).  Every row id is read through clamp_row (common.cuh)
+// against its own tier's rows, Vc or Vh.  The TPU grid (B/BB, G, L tiles)
+// revisits one output
 // block in order; blocks on a GPU run in no order, so here one CTA owns a
 // batch tile of BB samples and loops over the G bags and the L entries
 // itself.
@@ -41,7 +43,12 @@
 // before the interaction, in a kernel of its own (partial_pool_kernel).
 // Each bag's cold and hot accumulators go to device memory as (B, F, D)
 // tiles, part_c[s] per cold shard (row 0 zero) and part_h (row 0 = x);
-// fused_resume (dot_interaction.cu) adds them and interacts.
+// fused_resume (dot_interaction.cu) adds them and interacts.  A row id is
+// read through clamp_row against its shard's slice (cold_stride rows: the
+// reference pools each shard on its own local table) or the hot tier's
+// Vh rows, so an id past a slice's end reads that slice's last row, never
+// the next slice's.  The gather-once plan holds rows of the whole cold
+// tier (slice offsets added by the caller): its stage clamps against Vc.
 //
 // Bound: bytes (the gather, plus the S + 1 tiles written); in practice
 // latency, the chain of dependent metadata -> row round trips that each
@@ -207,17 +214,17 @@ __device__ __forceinline__ void front_end_walk(
 template <typename T, int VEC, int U>
 __global__ void __launch_bounds__(FE_THREADS, fe_min_blocks<VEC, U>())
     fused_front_end_kernel(
-        const T* __restrict__ cold, const float* __restrict__ hot,
-        const float* __restrict__ x, const int32_t* __restrict__ rows,
-        const uint8_t* __restrict__ owned, const uint8_t* __restrict__ is_hot,
-        const float* __restrict__ w, const float* __restrict__ scales,
-        float* __restrict__ out, int B, int G, int L, int D, int P, int BB,
-        int team) {
+        const T* __restrict__ cold, int64_t Vc, const float* __restrict__ hot,
+        int64_t Vh, const float* __restrict__ x,
+        const int32_t* __restrict__ rows, const uint8_t* __restrict__ owned,
+        const uint8_t* __restrict__ is_hot, const float* __restrict__ w,
+        const float* __restrict__ scales, float* __restrict__ out, int B,
+        int G, int L, int D, int P, int BB, int team) {
   extern __shared__ float tile[];
   __shared__ PlanEntry meta[2 * FE_THREADS];
-  front_end_walk<T, VEC, U>(cold, hot, x, PerEntry{rows, scales},
-                            PerEntry{rows, nullptr}, owned, is_hot, w, out, B,
-                            G, L, D, P, BB, team, tile, meta);
+  front_end_walk<T, VEC, U>(cold, hot, x, PerEntry{rows, scales, Vc},
+                            PerEntry{rows, nullptr, Vh}, owned, is_hot, w,
+                            out, B, G, L, D, P, BB, team, tile, meta);
 }
 
 // The gather-once fused front end: each tier's rows through its plan.
@@ -285,8 +292,8 @@ static int launch_tiles(K k4, K k8, int inflight, int B, int G, int D,
 }
 
 template <typename T, int VEC>
-static int launch_front_end(const void* cold, const float* hot,
-                            const float* x, const int32_t* rows,
+static int launch_front_end(const void* cold, int64_t Vc, const float* hot,
+                            int64_t Vh, const float* x, const int32_t* rows,
                             const uint8_t* owned, const uint8_t* is_hot,
                             const float* w, const float* scales, float* out,
                             int B, int G, int L, int D, int BB, int threads,
@@ -295,9 +302,9 @@ static int launch_front_end(const void* cold, const float* hot,
   if constexpr (sizeof(T) == 4) k8 = fused_front_end_kernel<T, VEC, 8>;
   return launch_tiles(fused_front_end_kernel<T, VEC, 4>, k8, inflight, B, G,
                       D, VEC, BB, threads, stream,
-                      static_cast<const T*>(cold), hot, x, rows, owned,
-                      is_hot, w, scales, out, B, G, L, D, G * (G + 1) / 2,
-                      BB, team_size(D / VEC));
+                      static_cast<const T*>(cold), Vc, hot, Vh, x, rows,
+                      owned, is_hot, w, scales, out, B, G, L, D,
+                      G * (G + 1) / 2, BB, team_size(D / VEC));
 }
 
 template <typename T, int VEC>
@@ -336,7 +343,8 @@ constexpr int POOL_U = 4;          // entries whose rows are in flight at once
 
 // The partial pool: NSH shards of grid row blockIdx.y's group (shards
 // s0 = blockIdx.y * NSH .. s0 + ns - 1) in one walk over each bag's
-// entries.  owned (S, B, G, L); rows (B, G, L) rows local to a slice, or
+// entries.  owned (S, B, G, L); rows (B, G, L) row ids local to a slice
+// (clamp_row: against cold_stride in the cold tier, Vh in the hot), or
 // with DEDUP the cold slots (S, B, G, L); cold's shard s slice at row
 // s * cold_stride (without DEDUP); scales (int8 only, without DEDUP).  One
 // team of threads per bag, a few bags per block (small blocks, so that a
@@ -354,7 +362,7 @@ __global__ void __launch_bounds__(POOL_THREADS) partial_pool_kernel(
     const float* __restrict__ w, const float* __restrict__ scales, int B,
     int G, int L, int D, int S, int team,
     const int32_t* __restrict__ hslots, const float* __restrict__ cstage,
-    const float* __restrict__ hstage, int64_t cold_stride,
+    const float* __restrict__ hstage, int64_t cold_stride, int64_t Vh,
     float* __restrict__ part_c, float* __restrict__ part_h) {
   __shared__ PoolEntry meta[POOL_THREADS];
   // 16-float chunks: one entry in flight, so that the registers hold more
@@ -421,9 +429,10 @@ __global__ void __launch_bounds__(POOL_THREADS) partial_pool_kernel(
           p.hot = with_hot ? __ldg(hslots + e) * static_cast<int64_t>(D) : 0;
         } else {
           // nobody: row 0 of the group's first slice, read and not used
-          const int64_t r = __ldg(rows + e);
-          p.cold = ((s0 + first) * cold_stride + (m ? r : 0)) * D;
-          p.hot = (hit ? r : 0) * D;
+          const int32_t r = __ldg(rows + e);
+          p.cold = ((s0 + first) * cold_stride +
+                    (m ? clamp_row(r, cold_stride) : 0)) * D;
+          p.hot = (hit ? clamp_row(r, Vh) : 0) * D;
         }
         tm[lane] = p;
       }
@@ -471,7 +480,7 @@ __global__ void __launch_bounds__(POOL_THREADS) partial_pool_kernel(
                   const int64_t slot = __ldg(rows + (s0 + q) * n_e + e);
                   load_row<float, VEC>(cstage + slot * D + c * VEC, vc[u]);
                 } else {
-                  const int64_t r = __ldg(rows + e);
+                  const int64_t r = clamp_row(__ldg(rows + e), cold_stride);
                   load_row<T, VEC>(
                       cold + ((s0 + q) * cold_stride + r) * D + c * VEC,
                       vc[u]);
@@ -514,7 +523,7 @@ static int launch_partial(const void* cold, const float* hot, const float* x,
                           const int32_t* rows, const uint8_t* owned,
                           const uint8_t* is_hot, const float* w,
                           const float* scales, int B, int G, int L, int D,
-                          int S, int nsh, int64_t cold_stride,
+                          int S, int nsh, int64_t cold_stride, int64_t Vh,
                           cudaStream_t stream, const int32_t* hslots,
                           const float* cstage, const float* hstage,
                           float* part_c, float* part_h) {
@@ -528,7 +537,7 @@ static int launch_partial(const void* cold, const float* hot, const float* x,
 #define PARTIAL_POOL(N)                                                     \
   partial_pool_kernel<T, VEC, DEDUP, N><<<grid, POOL_THREADS, 0, stream>>>(\
       c, hot, x, rows, owned, is_hot, w, scales, B, G, L, D, S, team,       \
-      hslots, cstage, hstage, cold_stride, part_c, part_h)
+      hslots, cstage, hstage, cold_stride, Vh, part_c, part_h)
   switch (nsh) {
     case 1: PARTIAL_POOL(1); break;
     case 2: PARTIAL_POOL(2); break;
@@ -541,20 +550,20 @@ static int launch_partial(const void* cold, const float* hot, const float* x,
 }
 
 // cold (Vc, D) float32 or int8 (itemsize 4 / 1); hot (Vh, D) float32;
-// x (B, D) float32; rows (B, G, L) int32 rows of either tier; owned,
+// x (B, D) float32; rows (B, G, L) int32 row ids of either tier; owned,
 // is_hot (B, G, L) bool; w (B, G, L) float32 or null; scales (B, G, L)
 // float32, given exactly for an int8 cold tier; out (B, P) float32,
 // P = G(G+1)/2.  vec: row elements per lane (1; 4, a 16-byte float32 chunk
 // or 4 int8 codes; 16 int8 codes), BB samples per CTA, threads per CTA
 // and inflight rows in flight per lane (4, or 8 with a float32 cold tier)
 // -- the wrapper's choice (sls.py: front_end_shape).
-extern "C" int fused_front_end(const void* cold, int itemsize, int vec,
-                               const void* hot, const void* x,
-                               const void* rows, const void* owned,
-                               const void* is_hot, const void* w,
-                               const void* scales, void* out, int B, int G,
-                               int L, int D, int BB, int threads,
-                               int inflight, void* stream) {
+extern "C" int fused_front_end(const void* cold, int itemsize, int64_t Vc,
+                               int vec, const void* hot, int64_t Vh,
+                               const void* x, const void* rows,
+                               const void* owned, const void* is_hot,
+                               const void* w, const void* scales, void* out,
+                               int B, int G, int L, int D, int BB,
+                               int threads, int inflight, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto h = static_cast<const float*>(hot);
   auto xf = static_cast<const float*>(x);
@@ -565,8 +574,8 @@ extern "C" int fused_front_end(const void* cold, int itemsize, int vec,
   auto sc = static_cast<const float*>(scales);
   auto o = static_cast<float*>(out);
 #define FE(T, VEC)                                                          \
-  launch_front_end<T, VEC>(cold, h, xf, r, m, hm, wf, sc, o, B, G, L, D, BB, \
-                           threads, inflight, s)
+  launch_front_end<T, VEC>(cold, Vc, h, Vh, xf, r, m, hm, wf, sc, o, B, G, L, \
+                           D, BB, threads, inflight, s)
   if (itemsize == 4 && vec == 4) return FE(float, 4);
   if (itemsize == 4 && vec == 1) return FE(float, 1);
   if (itemsize == 1 && vec == 16) return FE(int8_t, 16);
@@ -615,7 +624,7 @@ extern "C" int fused_front_end_dedup(
 // The partial pool, one walk for all shards of a group.  cold
 // (S * cold_stride, D) float32 or int8, shard s's slice at row
 // s * cold_stride; hot (Vh, D) float32; x (B, D) float32; rows, is_hot
-// (B, G, L) int32 / bool, rows local to a slice; owned (S, B, G, L) bool;
+// (B, G, L) int32 / bool, row ids local to a slice; owned (S, B, G, L) bool;
 // w (B, G, L) float32 or null; scales (B, G, L) float32, given exactly
 // for an int8 cold tier; part_c (S, B, G + 1, D) and part_h
 // (B, G + 1, D) float32.  vec: row elements per lane (1; 4, a
@@ -624,7 +633,7 @@ extern "C" int fused_front_end_dedup(
 // shard_group).
 extern "C" int fused_partial_pool(const void* cold, int itemsize, int vec,
                                   int64_t cold_stride, int S, int nsh,
-                                  const void* hot, const void* x,
+                                  const void* hot, int64_t Vh, const void* x,
                                   const void* rows, const void* owned,
                                   const void* is_hot, const void* w,
                                   const void* scales, void* part_c,
@@ -642,7 +651,7 @@ extern "C" int fused_partial_pool(const void* cold, int itemsize, int vec,
   auto ph = static_cast<float*>(part_h);
 #define PARTIAL(T, V)                                                       \
   launch_partial<T, V, false>(cold, h, xf, r, m, hm, wf, sc, B, G, L, D, S, \
-                              nsh, cold_stride, s, nullptr, nullptr,        \
+                              nsh, cold_stride, Vh, s, nullptr, nullptr,    \
                               nullptr, pc, ph)
   if (itemsize == 4 && vec == 4) return PARTIAL(float, 4);
   if (itemsize == 4 && vec == 1) return PARTIAL(float, 1);
@@ -672,7 +681,7 @@ static int launch_partial_dedup(
   if (err != 0) return err;
   return launch_partial<float, VEC, true>(
       nullptr, hot, x, cslots, owned, is_hot, w, nullptr, B, G, L, D, S, nsh,
-      0, stream, hslots, cstage, hstage, part_c, part_h);
+      0, Vh, stream, hslots, cstage, hstage, part_c, part_h);
 }
 
 // The gather-once partial pool: one cold plan over all S shards (c_uniq

@@ -3,9 +3,11 @@
 // (fused_front_end.cu) and their gather-once variants masked_sls_dedup and
 // fused_front_end_dedup.  They differ only in where entry e's row and
 // scale come from (the row source):
-//   PerEntry     row idx[e], scale scales[e];
-//   ThroughPlan  row table[min(unique_rows[slots[e]], V - 1)], scale
+//   PerEntry     row clamp_row(idx[e], V), scale scales[e];
+//   ThroughPlan  row clamp_row(unique_rows[slots[e]], V), scale
 //                unique_scales[slots[e]] -- the gather-once kernels.
+// (clamp_row, common.cuh: any id reads a row of the table, as in the plain
+// versions.)
 // On the TPU the gather-once kernels first copy each unique row into VMEM
 // and then accumulate from there.  On Hopper the 50 MB L2 already plays
 // that part: duplicates of a row share one slot of the plan, hence one
@@ -86,12 +88,13 @@ __device__ __forceinline__ int team_compact(bool keep, int lane, int team,
 // Row sources: entry e's row of the table and its dequant scale.  SCALED:
 // an int8 table, whose rows carry a scale (1 otherwise).
 struct PerEntry {
-  const int32_t* idx;      // (N, L) rows
+  const int32_t* idx;      // (N, L) row ids
   const float* scales;     // (N, L), given when SCALED
+  int64_t V;               // table rows: clamp_row's range
   template <bool SCALED>
   __device__ __forceinline__ int64_t row(int64_t e, float* scale) const {
     *scale = SCALED ? __ldg(scales + e) : 1.0f;
-    return __ldg(idx + e);
+    return clamp_row(__ldg(idx + e), V);
   }
 };
 
@@ -99,12 +102,12 @@ struct ThroughPlan {
   const int32_t* slots;    // (N, L) slot per entry
   const int32_t* uniq;     // row per slot, sentinel-padded
   const float* uscales;    // scale per slot, given when SCALED
-  int64_t V;               // table rows: the clamp
+  int64_t V;               // table rows: clamp_row's range
   template <bool SCALED>
   __device__ __forceinline__ int64_t row(int64_t e, float* scale) const {
     const int32_t u = __ldg(slots + e);
     *scale = SCALED ? __ldg(uscales + u) : 1.0f;
-    return min(static_cast<int64_t>(__ldg(uniq + u)), V - 1);
+    return clamp_row(__ldg(uniq + u), V);
   }
 };
 

@@ -4,14 +4,16 @@
 // masked_sls replaces the Pallas TPU kernel src/repro/kernels/sls.py:
 // _sls_call (masked_sls_pallas and sls_pallas).  out[n] = sum_l f[n,l] *
 // row[n,l] in the fixed order l = 0..L-1, with f = owned * w and
-// row = table[idx] (int8: float(q) * scale, rounded on its own); a
+// row = table[clamp_row(idx, V)] (int8: float(q) * scale, rounded on its
+// own; clamp_row, common.cuh: any id reads a row of the table); a
 // non-owned entry adds nothing (the plain version adds 0 * row 0, the same
 // on finite rows: gather_once.cuh).
 //
 // masked_sls_dedup replaces src/repro/kernels/sls.py:254
 // masked_sls_dedup_pallas (its pallas_call at :304): the same sum, each
 // owned entry's row read through the dedup plan, row =
-// table[unique_rows[slots[e]]] (int8: times the slot's scale), with no
+// table[clamp_row(unique_rows[slots[e]], V)] (int8: times the slot's
+// scale), with no
 // staging buffer (gather_once.cuh).  Same operands, same fmaf order:
 // bitwise equal to masked_sls for every weight on finite rows.
 //
@@ -83,13 +85,13 @@ __device__ __forceinline__ void sls_walk(const T* __restrict__ table, int D,
 
 template <typename T, int VEC, int U>
 __global__ void __launch_bounds__(SLS_THREADS) masked_sls_kernel(
-    const T* __restrict__ table, int D, const int32_t* __restrict__ idx,
-    const uint8_t* __restrict__ owned, const float* __restrict__ w,
-    const float* __restrict__ scales, float* __restrict__ out, int N, int L,
-    int team) {
+    const T* __restrict__ table, int64_t V, int D,
+    const int32_t* __restrict__ idx, const uint8_t* __restrict__ owned,
+    const float* __restrict__ w, const float* __restrict__ scales,
+    float* __restrict__ out, int N, int L, int team) {
   __shared__ PlanEntry meta[SLS_THREADS];
-  sls_walk<T, VEC, U>(table, D, PerEntry{idx, scales}, owned, w, out, N, L,
-                      team, meta);
+  sls_walk<T, VEC, U>(table, D, PerEntry{idx, scales, V}, owned, w, out, N,
+                      L, team, meta);
 }
 
 template <typename T, int VEC, int U>
@@ -119,7 +121,7 @@ static dim3 sls_grid(int N, int D, int vec, int threads) {
 }
 
 template <typename T, int VEC>
-static void launch_sls(const void* table, int D, int inflight,
+static void launch_sls(const void* table, int64_t V, int D, int inflight,
                        const int32_t* idx, const uint8_t* owned,
                        const float* w, const float* scales, float* out, int N,
                        int L, int threads, cudaStream_t stream) {
@@ -129,26 +131,27 @@ static void launch_sls(const void* table, int D, int inflight,
   if constexpr (VEC < 16) {
     if (inflight == 8) {
       masked_sls_kernel<T, VEC, 8><<<grid, threads, 0, stream>>>(
-          t, D, idx, owned, w, scales, out, N, L, team);
+          t, V, D, idx, owned, w, scales, out, N, L, team);
       return;
     }
   }
   masked_sls_kernel<T, VEC, 4><<<grid, threads, 0, stream>>>(
-      t, D, idx, owned, w, scales, out, N, L, team);
+      t, V, D, idx, owned, w, scales, out, N, L, team);
 }
 
 // table: (V, D) float32 (itemsize 4) or int8 codes (itemsize 1);
-// idx (N, L) int32 rows of the table; owned (N, L) bool or null (every
+// idx (N, L) int32 row ids (clamp_row); owned (N, L) bool or null (every
 // entry); w (N, L) float32 or null; scales (N, L) float32, given exactly
 // for an int8 table; out (N, D) float32.  vec: row elements per lane (1;
 // 4, a 16-byte float32 chunk or 4 int8 codes; 16 int8 codes), inflight:
 // rows in flight per lane (4, or 8 where vec < 16), threads: a multiple of
 // 32 and of the team, at most SLS_THREADS -- the wrapper's choice (sls.py:
 // sls_shape).
-extern "C" int masked_sls(const void* table, int itemsize, int D, int vec,
-                          int inflight, const void* idx, const void* owned,
-                          const void* w, const void* scales, void* out, int N,
-                          int L, int threads, void* stream) {
+extern "C" int masked_sls(const void* table, int itemsize, int64_t V, int D,
+                          int vec, int inflight, const void* idx,
+                          const void* owned, const void* w,
+                          const void* scales, void* out, int N, int L,
+                          int threads, void* stream) {
   if (!sls_shape_ok(D, vec, inflight, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -158,7 +161,8 @@ extern "C" int masked_sls(const void* table, int itemsize, int D, int vec,
   auto sc = static_cast<const float*>(scales);
   auto o = static_cast<float*>(out);
 #define SLS(T, VEC) \
-  launch_sls<T, VEC>(table, D, inflight, i, m, wf, sc, o, N, L, threads, s)
+  launch_sls<T, VEC>(table, V, D, inflight, i, m, wf, sc, o, N, L, threads, \
+                     s)
   if (itemsize == 4 && vec == 4) SLS(float, 4);
   else if (itemsize == 4 && vec == 1) SLS(float, 1);
   else if (itemsize == 1 && vec == 16) SLS(int8_t, 16);

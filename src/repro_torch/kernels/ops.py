@@ -25,6 +25,16 @@ RMC widths 64 and 128) and the tables are 16-byte aligned (every PyTorch
 allocation is), the kernels load 16 bytes per thread; any other D takes
 the kernels' scalar path and stays correct.
 
+Row ids.  Every entry that takes row ids reads, on either route, the row
+``ref.clamp_rows`` names: an id clamped into [-V, V-1], then taken mod V,
+with V the rows of the table it reads (the whole table for ``sls`` and
+``masked_sls``; each tier apart for the fused entries; one slice for
+each shard of the S-slice partial pool, and the whole cold tier for a
+gather-once plan, whose rows carry their slice offsets).  So an id past
+the end reads row V-1, one in [-V, 0) wraps once and one below -V reads
+row 0, as the reference's Pallas route does; nothing raises and nothing
+reads outside its table.
+
 Gradients.  ``masked_sls``, ``masked_sls_dedup`` and ``dot_interaction``
 are ``torch.autograd.Function``s when a float table (or the features)
 requires a gradient: the forward is the dispatch above, the backward is
@@ -239,14 +249,14 @@ def _masked_sls_dedup(table, plan, owned, weights, impl):
 
 class _MaskedSLSDedup(torch.autograd.Function):
     """The gather-once SLS; its backward reaches each entry's row through
-    its slot of the plan (the staging gather's clamp included)."""
+    its slot of the plan (``ref.sls_table_grad`` reads it as the forward
+    did)."""
 
     @staticmethod
     def forward(ctx, table, plan, owned, weights, impl):
-        V = table.shape[0]
-        rows = plan.unique_rows.long().clamp(max=V - 1)[plan.slots.long()]
+        rows = plan.unique_rows[plan.slots.long()]
         ctx.save_for_backward(rows, owned, weights)
-        ctx.n_rows = V
+        ctx.n_rows = table.shape[0]
         return _masked_sls_dedup(table, plan, owned, weights, impl)
 
     @staticmethod

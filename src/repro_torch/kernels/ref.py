@@ -5,6 +5,10 @@ wrappers take these for CPU tensors; on the card only ``chip_smoke.py``
 and an explicit ``impl="torch"`` call them, to hold the kernels against
 them.
 
+A row id names the row :func:`clamp_rows` gives it, in the plain versions
+and the kernels alike: any int32 id reads a row of its table, and none
+raises.
+
 Accumulation order is the kernels' fixed l = 0..L-1 order, and partials
 of several cold-tier shards are summed in shard order (:func:`shard_sum`).
 The plain versions multiply then add (two roundings) where the kernels
@@ -19,13 +23,23 @@ from typing import Optional
 import torch
 
 
+def clamp_rows(idx: torch.Tensor, V: int) -> torch.Tensor:
+    """The row of a V-row table that id ``idx`` names, as int64: the id
+    clamped into [-V, V-1], then taken mod V.  So an id in [-V, 0) wraps
+    once, one below -V names row 0 and one past the end row V-1.  This is
+    the row the reference's Pallas route reads for any id, and the rule
+    the engine applies to pages (``core/pifs.py: _address``); each
+    kernel's ``clamp_row`` (``csrc/common.cuh``) applies it on the card."""
+    return idx.long().clamp(-V, V - 1).remainder_(V)
+
+
 def sls_ref(table: torch.Tensor, indices: torch.Tensor,
             weights: Optional[torch.Tensor] = None,
             out_dtype=torch.float32) -> torch.Tensor:
     """SparseLengthSum: out[b] = sum_l w[b,l] * table[idx[b,l]], summed in
     the order l = 0..L-1 as the reference's reduce sums (the plain version
     of ``ops.sls``)."""
-    rows = table[indices.long()].to(out_dtype)                  # (B, L, D)
+    rows = table[clamp_rows(indices, table.shape[0])].to(out_dtype)
     f = (torch.ones(indices.shape, dtype=out_dtype, device=indices.device)
          if weights is None else weights.to(out_dtype))
     return _fixed_order_accumulate(rows, f)
@@ -39,8 +53,8 @@ def masked_sls_ref(table: torch.Tensor, indices: torch.Tensor,
     """Masked partial SLS (summed in one reduce, not in fixed order):
     out[b] = sum_l owned[b,l] * w[b,l] * (scale[b,l] * table[idx[b,l]]).
     Non-owned entries are remapped to row 0 before the gather."""
-    safe = torch.where(owned, indices, torch.zeros_like(indices))
-    rows = table[safe.long()].to(out_dtype)
+    safe = torch.where(owned, clamp_rows(indices, table.shape[0]), 0)
+    rows = table[safe].to(out_dtype)
     if scales is not None:
         rows = rows * scales[..., None].to(out_dtype)
     w = owned.to(out_dtype)
@@ -59,14 +73,13 @@ def _fixed_order_masked_sls(table: torch.Tensor, indices: torch.Tensor,
     owned (plain SLS).  Each gathered row is dequantized
     (``float(row) * scale``) before the weighted add."""
     B, L = indices.shape
-    D = table.shape[-1]
+    safe = clamp_rows(indices, table.shape[0])
     if owned is None:
-        safe = indices
         f = torch.ones((B, L), dtype=out_dtype, device=indices.device)
     else:
-        safe = torch.where(owned, indices, torch.zeros_like(indices))
+        safe = torch.where(owned, safe, 0)
         f = owned.to(out_dtype)
-    rows = table[safe.long()].to(out_dtype)                     # (B, L, D)
+    rows = table[safe].to(out_dtype)                            # (B, L, D)
     if scales is not None:
         rows = rows * scales[..., None].to(out_dtype)
     if weights is not None:
@@ -103,16 +116,16 @@ def masked_sls_dedup_ref(table: torch.Tensor, unique_rows: torch.Tensor,
     """Gather-once masked partial SLS (staging semantics) -- the plain
     version of the ``masked_sls_dedup`` kernel.
 
-    unique_rows (U,) row per staging slot (sentinel-padded, clamped into
-    range at the gather); slots (B, L) staging slot per entry; optional
-    unique_scales (U,) per-slot dequant scales.  Each unique row is
+    unique_rows (U,) row per staging slot (sentinel-padded; each read as
+    :func:`clamp_rows` names it, so the sentinel reads row V-1); slots
+    (B, L) staging slot per entry; optional unique_scales (U,) per-slot
+    dequant scales.  Each unique row is
     gathered and dequantized once into a (U, D) staging buffer, then the
     fixed l-order accumulate reads it through ``slots``.  Given per-entry
     ``scales[b,l] == unique_scales[slots[b,l]]`` the operands equal the
     per-entry gather's, so this equals :func:`_fixed_order_masked_sls`
     bitwise."""
-    V = table.shape[0]
-    staging = table[unique_rows.long().clamp(max=V - 1)].to(out_dtype)
+    staging = table[clamp_rows(unique_rows, table.shape[0])].to(out_dtype)
     if unique_scales is not None:
         staging = staging * unique_scales[:, None].to(out_dtype)
     f = owned.to(out_dtype)
@@ -134,14 +147,15 @@ def sls_table_grad(grad_out: torch.Tensor, indices: torch.Tensor,
     (``embedding_dense_backward``): it sorts the entries by row and sums
     each row's in a fixed order, in parallel over a row's duplicates, so
     a run repeats bit for bit on the CPU and the card and a zipfian hot
-    row does not serialize.  A masked entry names a padding row past the
-    table, which that function skips."""
+    row does not serialize.  Each id lands on the row :func:`clamp_rows`
+    names, the row the forward read.  A masked entry names a padding row
+    past the table, which that function skips."""
     N, L = indices.shape
     D = grad_out.shape[-1]
     contrib = grad_out[:, None, :].expand(N, L, D)
     if weights is not None:
         contrib = contrib * weights[..., None]
-    rows = indices.long()
+    rows = clamp_rows(indices, n_rows)
     if owned is not None:
         rows = torch.where(owned, rows, n_rows)
     grad = torch.ops.aten.embedding_dense_backward(

@@ -34,6 +34,10 @@
   gather-once variant stages both tiers in one launch, then accumulates:
   two launches.
 
+Every kernel reads a row id as ``ref.clamp_rows`` does, against the rows
+of the table it reads (``csrc/common.cuh: clamp_row``), so no id reads
+outside its table; the wrappers pass each table's rows.
+
 These functions take CUDA tensors only and launch the kernel or raise.
 ``kernels/ops.py`` picks between them and the plain versions in
 ``kernels/ref.py``.  Timings on the card are in ``PERF.md``.
@@ -119,7 +123,7 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError("the masked_sls kernel takes CUDA tensors")
     N, L = indices.shape
-    D = table.shape[1]
+    V, D = table.shape
     out = torch.empty((N, D), dtype=torch.float32, device=table.device)
     if N == 0:
         return out
@@ -128,9 +132,9 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
     vec, _, inflight, threads, _ = sls_shape(
         N, D, table.element_size(),
         bool(_vec16(D, table.element_size(), table)), _n_sm(table))
-    fn = build.entry("masked_sls", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _P])
-    err = fn(table.data_ptr(), table.element_size(), D, vec, inflight,
+    fn = build.entry("masked_sls", [_P, _I, _I64, _I, _I, _I, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _P])
+    err = fn(table.data_ptr(), table.element_size(), V, D, vec, inflight,
              indices.data_ptr(), _ptr(owned), _ptr(weights), _ptr(scales),
              out.data_ptr(), N, L, threads, _stream(table))
     build.check("masked_sls", err)
@@ -278,13 +282,14 @@ def fused_front_end(cold: torch.Tensor, hot: torch.Tensor, x: torch.Tensor,
     vec, _, BB, threads, inflight = front_end_shape(
         B, G, D, cold.element_size(),
         bool(_vec16(D, cold.element_size(), cold) & _vec16(D, 4, hot)), n_sm)
-    fn = build.entry("fused_front_end", [_P, _I, _I, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                         _P])
-    err = fn(cold.data_ptr(), cold.element_size(), vec, hot.data_ptr(),
-             x.data_ptr(), rows.data_ptr(), owned.data_ptr(),
-             is_hot.data_ptr(), _ptr(weights), _ptr(scales), out.data_ptr(),
-             B, G, L, D, BB, threads, inflight, _stream(cold))
+    fn = build.entry("fused_front_end", [_P, _I, _I64, _I, _P, _I64, _P, _P,
+                                         _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _I, _I, _P])
+    err = fn(cold.data_ptr(), cold.element_size(), cold.shape[0], vec,
+             hot.data_ptr(), hot.shape[0], x.data_ptr(), rows.data_ptr(),
+             owned.data_ptr(), is_hot.data_ptr(), _ptr(weights),
+             _ptr(scales), out.data_ptr(), B, G, L, D, BB, threads, inflight,
+             _stream(cold))
     build.check("fused_front_end", err)
     build.KERNELS["fused_front_end"].launches += 1
     return out
@@ -513,13 +518,13 @@ def fused_partial_pool(cold: torch.Tensor, hot: torch.Tensor,
                    bool(_vec16(D, cold.element_size(), cold)
                         & _vec16(D, 4, hot)), nsh, B * G, n_sm)
     fn = build.entry("fused_partial_pool",
-                     [_P, _I, _I, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _I, _I, _I, _P])
+                     [_P, _I, _I, _I64, _I, _I, _P, _I64, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _I, _I, _I, _I, _P])
     err = fn(cold.data_ptr(), cold.element_size(), vec,
-             cold.shape[0] // S, S, nsh, hot.data_ptr(), x.data_ptr(),
-             rows.data_ptr(), owned.data_ptr(), is_hot.data_ptr(),
-             _ptr(weights), _ptr(scales), part_c.data_ptr(),
-             part_h.data_ptr(), B, G, L, D, _stream(cold))
+             cold.shape[0] // S, S, nsh, hot.data_ptr(), hot.shape[0],
+             x.data_ptr(), rows.data_ptr(), owned.data_ptr(),
+             is_hot.data_ptr(), _ptr(weights), _ptr(scales),
+             part_c.data_ptr(), part_h.data_ptr(), B, G, L, D, _stream(cold))
     build.check("fused_partial_pool", err)
     build.KERNELS["fused_partial_pool"].launches += 1
     return part_c, part_h
