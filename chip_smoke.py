@@ -5622,7 +5622,8 @@ def main(argv=None) -> None:
     t = time.perf_counter()
     paths = build.build_all()
     print(f"built {len(paths)} libraries ({len(build.KERNELS)} kernels) in "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
+          f"{time.perf_counter() - t:.1f} s; {build.libraries_line()}",
+          flush=True)
     for name, p in paths.items():
         log = p.with_suffix(".log").read_text() if p.with_suffix(
             ".log").exists() else ""

@@ -54,6 +54,7 @@ from repro_torch.core.planner import PlannerConfig, plan
 from repro_torch.device import DeviceLike, is_fake, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import clamp_rows, shard_sum
+from repro_torch.trace import span
 
 FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
 #                      its fused staging budget counts
@@ -1045,12 +1046,18 @@ class ServeBinding:
         (``validate_ids``), copy it to the engine's device, run the step
         and wait for the card, so the caller's wall clock around this call
         is the batch's service time.  Returns the (B,) scores on the
-        device, non-finite ones zeroed under ``scrub_scores``."""
-        if self.validate_ids and self.idx_key and self.idx_key in batch:
-            self.engine._check_ids(batch[self.idx_key])
-        tb = {k: self._on_device(v) for k, v in batch.items()}
-        out = self.steps[self.active](self.state, tb)
-        self._sync()
+        device, non-finite ones zeroed under ``scrub_scores``.  Under a
+        profiler the call is the span ``pifs.execute`` around ``pifs.h2d``
+        (the copy), ``pifs.step`` and ``pifs.sync`` (``repro_torch.trace``)."""
+        with span("pifs.execute"):
+            if self.validate_ids and self.idx_key and self.idx_key in batch:
+                self.engine._check_ids(batch[self.idx_key])
+            with span("pifs.h2d"):
+                tb = {k: self._on_device(v) for k, v in batch.items()}
+            with span("pifs.step"):
+                out = self.steps[self.active](self.state, tb)
+            with span("pifs.sync"):
+                self._sync()
         self.last_poisoned = 0
         if self.scrub_scores:
             finite = torch.isfinite(out)

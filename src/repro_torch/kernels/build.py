@@ -24,7 +24,10 @@ returns ``cudaGetLastError()`` after its launch.
 wrapper launched it (a plain integer the wrapper bumps at each launch).
 :func:`kernel_call` reports each call of a kernel, on any route (launch,
 plain version or a fake tensor's shape function), to the counters in
-``SINKS`` (``launch/op_stats.py``).
+``SINKS`` (``launch/op_stats.py``).  ``LIBRARIES`` records, for this
+process, each library :func:`build_all` compiled (its ``nvcc`` seconds) or
+found built in ``build/kernels`` (``None``); :func:`libraries_line` prints
+it, so a run says which kernel was built again.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -111,6 +116,9 @@ def kernel_call(name: str):
             s.kernel_exit(name)
 
 
+# source stem -> nvcc seconds in this process, or None: found built
+LIBRARIES: Dict[str, Optional[float]] = {}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -150,8 +158,10 @@ def build_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {KERNELS[n].stem: lib_path(KERNELS[n].stem) for n in names}
     procs = {}
+    t0 = time.perf_counter()
     for n, out in paths.items():
         if out.exists():
+            LIBRARIES.setdefault(n, None)
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         log = open(out.with_suffix(".log"), "w")
@@ -160,17 +170,32 @@ def build_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Path]:
              str(CSRC / f"{n}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
     failed = []
-    for n, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(f"{n} (rc={rc}):\n"
-                          + out.with_suffix(".log").read_text())
-        else:
-            os.replace(tmp, out)
+    while procs:
+        time.sleep(0.05)
+        for n in [n for n, p in procs.items() if p[0].poll() is not None]:
+            proc, tmp, out, log = procs.pop(n)
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"{n} (rc={proc.returncode}):\n"
+                              + out.with_suffix(".log").read_text())
+            else:
+                os.replace(tmp, out)
+                LIBRARIES[n] = time.perf_counter() - t0
+                print(f"kernels: nvcc built {n} in {LIBRARIES[n]:.1f} s",
+                      file=sys.stderr, flush=True)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def libraries_line() -> str:
+    """This process's kernel libraries: compiled (with ``nvcc`` seconds)
+    and found built."""
+    built = [f"{n} {s:.1f} s" for n, s in LIBRARIES.items() if s is not None]
+    ready = [n for n, s in LIBRARIES.items() if s is None]
+    return (f"kernel libraries built with nvcc: {', '.join(built) or 'none'}"
+            f"; found in {BUILD_DIR.relative_to(REPO_ROOT)}: "
+            f"{', '.join(ready) or 'none'}")
 
 
 def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import MLP
 from repro_torch.models.params import joint_train_step
 from repro_torch.models.recsys import _bce
+from repro_torch.trace import span
 
 
 def build_engine(cfg: DLRMConfig, device: DeviceLike = None,
@@ -85,27 +86,33 @@ class DLRM(nn.Module):
         resume at n_shards > 1 or in pond); ``mode`` is the engine's
         (pifs, pond or beacon); ``tiers='hot_only'`` reads the hot tier only
         and forces the split front end, as the reference does.  ``dedup``
-        is the engine's gather-once knob (None = the engine default)."""
+        is the engine's gather-once knob (None = the engine default).
+        Under a profiler the towers and the front end are the spans
+        ``pifs.bottom_mlp``, ``pifs.front_end`` (either route) and
+        ``pifs.top_mlp`` (``repro_torch.trace``)."""
         if front_end not in PIFSEmbeddingEngine.FRONT_END_MODES:
             raise ValueError(f"unknown front_end {front_end!r}")
         if tiers != "all":
             front_end = "split"                # fused path is all-tiers only
         idx, w = batch["indices"], batch.get("weights")
-        x_bot = self.bottom(batch["dense"])
-        if self.bot_proj is not None:
-            x_bot = x_bot @ self.bot_proj                       # (B, d)
-        if front_end == "fused":
-            inter = engine.lookup_interact(
-                state, idx, x_bot, weights=w, mode=mode, impl=impl,
-                dedup=dedup, front_end="fused")                 # (B, P)
-        else:
-            pooled = engine.lookup(state, idx, weights=w, mode=mode,
-                                   impl=impl, dedup=dedup,
-                                   tiers=tiers)                 # (B, T, d)
-            feats = torch.cat([x_bot[:, None, :], pooled], dim=1)
-            inter = kernel_ops.dot_interaction(feats, impl=impl)
+        with span("pifs.bottom_mlp"):
+            x_bot = self.bottom(batch["dense"])
+            if self.bot_proj is not None:
+                x_bot = x_bot @ self.bot_proj                   # (B, d)
+        with span("pifs.front_end"):
+            if front_end == "fused":
+                inter = engine.lookup_interact(
+                    state, idx, x_bot, weights=w, mode=mode, impl=impl,
+                    dedup=dedup, front_end="fused")             # (B, P)
+            else:
+                pooled = engine.lookup(state, idx, weights=w, mode=mode,
+                                       impl=impl, dedup=dedup,
+                                       tiers=tiers)             # (B, T, d)
+                feats = torch.cat([x_bot[:, None, :], pooled], dim=1)
+                inter = kernel_ops.dot_interaction(feats, impl=impl)
         z = torch.cat([x_bot, inter], dim=-1)
-        return self.top(z)[:, 0]
+        with span("pifs.top_mlp"):
+            return self.top(z)[:, 0]
 
 
 def make_serve_step(model: DLRM, engine: PIFSEmbeddingEngine,
