@@ -51,6 +51,7 @@ from repro_torch.core.paging import (HOT_SHARD, PageTable, PagingConfig,
                                      host, initial_page_table, locate,
                                      placement_gather_indices)
 from repro_torch.core.planner import PlannerConfig, plan
+from repro_torch.core.staging import BatchStager
 from repro_torch.device import DeviceLike, is_fake, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import clamp_rows, shard_sum
@@ -939,10 +940,11 @@ class ServeBinding:
     :meth:`plan_stats` exposes the signature count the batcher's bucket set
     is built around (one signature per bucket, none new once warmed).
 
-    A step is ``step(state, batch) -> (B,) scores`` over a batch of tensors
-    on the engine's device; ``model`` is the module whose parameters the
-    steps close over (the reference's ``params``).  Opt-in seams, off by
-    default:
+    A step is ``step(state, batch) -> (B,) scores`` over a mapping of
+    tensors on the engine's device, each copied there when the step first
+    reads it (:meth:`execute`); ``model`` is the module whose
+    parameters the steps close over (the reference's ``params``).  Opt-in
+    seams, off by default:
 
       * ``steps`` -- named serve-step variants (the brown-out ladder's
         rungs: split front end, dedup off, hot-tier-only, ...);
@@ -1021,6 +1023,8 @@ class ServeBinding:
         self.remeshes = 0
         self.remesh_events: list = []
         self._carried_traces = 0     # signatures first seen before a remesh
+        # the batch's copies to the card, entry by entry at first read
+        self._stager = BatchStager(engine.device)
 
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
@@ -1043,19 +1047,28 @@ class ServeBinding:
     def execute(self, batch: dict) -> torch.Tensor:
         """Run the active step on a padded host batch (numpy arrays, as the
         serving padder builds it): check its ids on the host
-        (``validate_ids``), copy it to the engine's device, run the step
-        and wait for the card, so the caller's wall clock around this call
-        is the batch's service time.  Returns the (B,) scores on the
-        device, non-finite ones zeroed under ``scrub_scores``.  Under a
-        profiler the call is the span ``pifs.execute`` around ``pifs.h2d``
-        (the copy), ``pifs.step`` and ``pifs.sync`` (``repro_torch.trace``)."""
+        (``validate_ids``), run the step on the batch as a
+        ``core.staging`` mapping, and wait for the card, so the caller's
+        wall clock around this call is the batch's service time.  Each
+        entry is copied to the engine's device when the step first reads
+        it, through a pinned buffer on a copy stream: a DLRM step reads
+        ``dense`` in its bottom MLP and the lookup inputs after it, so
+        their copies run while the bottom MLP does.  A batch under
+        ``core.staging.PINNED_MIN_BYTES`` (a serving bucket) is copied
+        whole before the step, as the overlap cannot repay the pinned
+        path's cost there.  Returns the (B,) scores on the device,
+        non-finite ones zeroed under ``scrub_scores``.  Under a
+        profiler the call is the span
+        ``pifs.execute`` around ``pifs.step`` and ``pifs.sync`` (the wait
+        for the card); the step's first read (or a small batch's copy) is
+        ``pifs.h2d`` and its later ones ``pifs.h2d_late``
+        (``repro_torch.trace``)."""
         with span("pifs.execute"):
             if self.validate_ids and self.idx_key and self.idx_key in batch:
                 self.engine._check_ids(batch[self.idx_key])
-            with span("pifs.h2d"):
-                tb = {k: self._on_device(v) for k, v in batch.items()}
+            staged = self._stager.batch(batch)
             with span("pifs.step"):
-                out = self.steps[self.active](self.state, tb)
+                out = self.steps[self.active](self.state, staged)
             with span("pifs.sync"):
                 self._sync()
         self.last_poisoned = 0
@@ -1390,8 +1403,17 @@ class ServeBinding:
         return out
 
     def reset_plan_stats(self) -> None:
+        """Zero the engine's counters and :meth:`staging_stats`."""
         self.engine.reset_plan_stats()
         self._carried_traces = 0
+        self._stager.reset_stats()
+
+    def staging_stats(self) -> dict:
+        """Since :meth:`reset_plan_stats`: ``calls`` (batches executed),
+        ``bytes`` (host bytes copied to the device) and ``late_bytes``
+        (those copied after the step's first read of its batch, which the
+        step's own work can hide)."""
+        return self._stager.stats()
 
 
 def engine_for_tables(vocab_sizes, dim: int, device: DeviceLike = None,

@@ -89,17 +89,23 @@ class DLRM(nn.Module):
         is the engine's gather-once knob (None = the engine default).
         Under a profiler the towers and the front end are the spans
         ``pifs.bottom_mlp``, ``pifs.front_end`` (either route) and
-        ``pifs.top_mlp`` (``repro_torch.trace``)."""
+        ``pifs.top_mlp`` (``repro_torch.trace``).
+
+        ``batch["dense"]`` is read first, by the bottom MLP, and the
+        lookup inputs ``indices`` and ``weights`` only after the bottom MLP
+        and ``bot_proj`` are launched, so that a batch copied to the device
+        at first read (``ServeBinding.execute``) copies them while the
+        bottom MLP runs."""
         if front_end not in PIFSEmbeddingEngine.FRONT_END_MODES:
             raise ValueError(f"unknown front_end {front_end!r}")
         if tiers != "all":
             front_end = "split"                # fused path is all-tiers only
-        idx, w = batch["indices"], batch.get("weights")
         with span("pifs.bottom_mlp"):
             x_bot = self.bottom(batch["dense"])
             if self.bot_proj is not None:
                 x_bot = x_bot @ self.bot_proj                   # (B, d)
         with span("pifs.front_end"):
+            idx, w = batch["indices"], batch.get("weights")
             if front_end == "fused":
                 inter = engine.lookup_interact(
                     state, idx, x_bot, weights=w, mode=mode, impl=impl,

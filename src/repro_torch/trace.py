@@ -7,11 +7,14 @@ the CUDA runtime calls and the kernels they launch, so a reduction of its
 trace (``bench/spans.py``) attributes device time and idle gaps to them.
 
 The serve path's spans, all named ``pifs.*``: ``ServeBinding.execute``
-(``core/pifs.py``) holds ``pifs.execute`` around ``pifs.h2d`` (the batch's
-copy to the device), ``pifs.step`` (the serve step) and ``pifs.sync``
-(the wait for the card); ``DLRM.forward`` (``models/dlrm.py``) holds
-``pifs.bottom_mlp``, ``pifs.front_end`` (lookup and interaction, either
-route) and ``pifs.top_mlp``.
+(``core/pifs.py``) holds ``pifs.execute`` around ``pifs.step`` (the serve
+step) and ``pifs.sync`` (the wait for the card); ``DLRM.forward``
+(``models/dlrm.py``) holds ``pifs.bottom_mlp``, ``pifs.front_end`` (lookup
+and interaction, either route) and ``pifs.top_mlp``.  The batch's copies
+to the device open where the step first reads an entry
+(``core/staging.py``): ``pifs.h2d`` for the step's first read (a DLRM's
+``dense``, under ``pifs.bottom_mlp``) and ``pifs.h2d_late`` for each later
+one (its ``indices`` and ``weights``, under ``pifs.front_end``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """The serve path's spans (``repro_torch/trace.py``): nothing while no
 profiler records, one range a call while one does, and in every
 ``ServeBinding.execute`` of a DLRM the nesting the trace's reduction
-(``bench/spans.py``) attributes by: ``pifs.execute`` holding ``pifs.h2d``,
-``pifs.step`` and ``pifs.sync`` in that order, the step holding
-``pifs.bottom_mlp``, ``pifs.front_end`` and ``pifs.top_mlp``."""
+(``bench/spans.py``) attributes by: ``pifs.execute`` holding ``pifs.step``
+and ``pifs.sync`` in that order, the step holding ``pifs.bottom_mlp``,
+``pifs.front_end`` and ``pifs.top_mlp``, and the batch's copies opening
+where the step first reads an entry: ``pifs.h2d`` (``dense``) in the
+bottom MLP, ``pifs.h2d_late`` (``indices``, ``weights``) in the front
+end."""
 import numpy as np
 import pytest
 import torch
@@ -16,8 +19,11 @@ from repro_torch.core.pifs import ServeBinding
 from repro_torch.models import dlrm
 from repro_torch.models.params import initialize
 
-EXECUTE_CHILDREN = ["pifs.h2d", "pifs.step", "pifs.sync"]
+EXECUTE_CHILDREN = ["pifs.step", "pifs.sync"]
 STEP_CHILDREN = ["pifs.bottom_mlp", "pifs.front_end", "pifs.top_mlp"]
+STAGED_UNDER = {"pifs.bottom_mlp": ["pifs.h2d"],
+                "pifs.front_end": ["pifs.h2d_late", "pifs.h2d_late"],
+                "pifs.top_mlp": []}
 
 
 def _spans(prof):
@@ -91,9 +97,14 @@ def test_execute_nests_the_serve_spans_in_order(front_end):
     spans = _spans(prof)
     executes = [s for s in spans if s[2] == "pifs.execute"]
     assert len(executes) == 2
-    assert len(spans) == 2 * (1 + len(EXECUTE_CHILDREN) + len(STEP_CHILDREN))
+    assert len(spans) == 2 * (1 + len(EXECUTE_CHILDREN) + len(STEP_CHILDREN)
+                              + sum(map(len, STAGED_UNDER.values())))
     for ex in executes:
         kids = _children(spans, ex)
         assert [k[2] for k in kids] == EXECUTE_CHILDREN
-        step = kids[1]
-        assert [k[2] for k in _children(spans, step)] == STEP_CHILDREN
+        step = kids[0]
+        parts = _children(spans, step)
+        assert [k[2] for k in parts] == STEP_CHILDREN
+        for part in parts:
+            assert ([k[2] for k in _children(spans, part)]
+                    == STAGED_UNDER[part[2]])
