@@ -7,6 +7,15 @@ its own that the harness finds by name:
 
   * ``configs/<config>.json``    the model's sizes as run (``family`` names
                                  the reference and the system adapter);
+                                 its tables as ``emb_num`` rows in each of
+                                 ``n_tables``, or ``vocab_sizes``, a list
+                                 of each table's rows; ``pooling`` one bag
+                                 length, or a list of one a table.  Where
+                                 every bag has one length L a batch's
+                                 ``indices`` and ``weights`` are (items,
+                                 T, L); otherwise (items, sum L_t), table
+                                 t's bag in the columns
+                                 ``loadgen.bag_edges(cfg)[t:t + 2]``;
   * ``traffic/<traffic>.json``   parameters of the one general generator
                                  (``loadgen.py``);
   * ``limits/<cell>.json``       each compared number's limit and the

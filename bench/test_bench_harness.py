@@ -215,6 +215,109 @@ def test_pool_is_fixed_by_the_seed():
     assert (a[0]["indices"][:, 1] >= offs[1]).all()
 
 
+# Tables that differ: a 3-row table with single-id bags beside a 5000-row
+# table with 100-id bags; offsets with gaps, so a table read through
+# another's offset shows.
+MIXED = {"n_dense": 13, "vocab_sizes": [3, 1000, 40, 5000],
+         "pooling": [1, 7, 2, 100]}
+MIXED_OFFSETS = np.array([0, 100, 1200, 1300], dtype=np.int64)
+MIXED_TRAFFIC = {
+    "zipf": {"items": 256, "distribution": "zipfian", "pool": 6},
+    "random": {"items": 256, "distribution": "random", "pool": 6}}
+
+
+def _same_pool(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for k in x:
+            assert x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+@pytest.mark.parametrize("traffic", [ZIPF, RANDOM], ids=["zipf", "random"])
+def test_listed_tables_alike_give_the_integer_forms_pool(traffic):
+    cfg = _tiny()
+    T, L = cfg["n_tables"], cfg["pooling"]
+    listed = {k: v for k, v in cfg.items() if k not in ("emb_num",
+                                                          "n_tables")}
+    listed.update(vocab_sizes=[cfg["emb_num"]] * T, pooling=[L] * T)
+    offs = ref.row_offsets(cfg)
+    a = loadgen.make_pool(cfg, traffic, 2**31 + 9, offs)
+    _same_pool(a, loadgen.make_pool(listed, traffic, 2**31 + 9, offs))
+    assert a[0]["indices"].shape == (traffic["items"], T, L)
+
+
+@pytest.mark.parametrize("dist", sorted(MIXED_TRAFFIC))
+def test_mixed_tables_lay_out_each_bag_in_its_columns(dist):
+    traffic = MIXED_TRAFFIC[dist]
+    items, rows = traffic["items"], MIXED["vocab_sizes"]
+    edges = loadgen.bag_edges(MIXED)
+    a = loadgen.make_pool(MIXED, traffic, 2**33 + 5, MIXED_OFFSETS)
+    for b in a:                       # every batch: drift on the 3-row table
+        assert b["indices"].shape == (items, 110)
+        assert b["indices"].dtype == np.int32
+        assert b["weights"].shape == (items, 110)
+        assert (b["weights"] == 1).all()
+        assert b["dense"].shape == (items, 13)
+        for t, n in enumerate(rows):
+            bag = b["indices"][:, edges[t]:edges[t + 1]]
+            assert bag.min() >= MIXED_OFFSETS[t], (t, bag.min())
+            assert bag.max() < MIXED_OFFSETS[t] + n, (t, bag.max())
+    _same_pool(a, loadgen.make_pool(MIXED, traffic, 2**33 + 5,
+                                    MIXED_OFFSETS))
+    c = loadgen.make_pool(MIXED, traffic, 2**33 + 6, MIXED_OFFSETS)
+    for t in range(len(rows)):
+        cols = slice(edges[t], edges[t + 1])
+        assert not np.array_equal(a[0]["indices"][:, cols],
+                                  c[0]["indices"][:, cols]), t
+
+
+def test_mixed_tables_zipf_peaks_at_each_tables_rank_0():
+    """The first batch is drawn before any drift: each table's most
+    frequent id is the row its own permutation (drawn in table order from
+    the seed) puts at rank 0."""
+    seed, rows = 2**31 + 17, MIXED["vocab_sizes"]
+    init = np.random.default_rng([seed, loadgen._INIT_TAG])
+    top = [init.permutation(n)[0] for n in rows]
+    first = loadgen.make_pool(MIXED, dict(MIXED_TRAFFIC["zipf"], pool=1),
+                              seed, MIXED_OFFSETS)[0]["indices"]
+    edges = loadgen.bag_edges(MIXED)
+    for t in range(len(rows)):
+        ids, counts = np.unique(first[:, edges[t]:edges[t + 1]]
+                                - MIXED_OFFSETS[t], return_counts=True)
+        assert ids[counts.argmax()] == top[t], t
+
+
+def test_bag_edges_follow_the_bag_lengths():
+    assert loadgen.bag_edges(MIXED).tolist() == [0, 1, 8, 10, 110]
+    assert loadgen.tables(MIXED) == ((3, 1000, 40, 5000), (1, 7, 2, 100))
+    cfg = _tiny()
+    T, L = cfg["n_tables"], cfg["pooling"]
+    edges = loadgen.bag_edges(cfg)
+    assert edges.tolist() == [t * L for t in range(T + 1)]
+    offs = ref.row_offsets(cfg)
+    b = loadgen.make_pool(cfg, ZIPF, 5, offs)[0]["indices"]
+    flat = b.reshape(len(b), -1)
+    assert flat.shape[1] == edges[-1]
+    for t in range(T):
+        np.testing.assert_array_equal(flat[:, edges[t]:edges[t + 1]],
+                                      b[:, t, :])
+        assert (b[:, t] >= offs[t]).all()
+        assert (b[:, t] < offs[t] + cfg["emb_num"]).all()
+
+
+@pytest.mark.parametrize("changes", [
+    {"pooling": [1, 7, 2]}, {"vocab_sizes": [3, 0, 40, 5000]},
+    {"pooling": [1, 7, 2.5, 100]}, {"n_tables": 5}, {"pooling": 0}],
+    ids=["short-pooling", "empty-table", "fractional-bag", "n_tables",
+         "zero-pooling"])
+def test_tables_refuse_a_malformed_configuration(changes):
+    with pytest.raises((ValueError, TypeError)):
+        loadgen.make_pool(dict(MIXED, **changes), MIXED_TRAFFIC["random"],
+                          1, MIXED_OFFSETS)
+
+
 # ------------------------------------------------- reference and port
 @pytest.mark.parametrize("storage", ["fp32", "int8"])
 @pytest.mark.parametrize("traffic", [ZIPF, RANDOM], ids=["zipf", "random"])
