@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--only PHASE[,PHASE]]
 
-1. builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all in parallel; the gather-once kernels,
    the partial pools and the resume share the sources of the kernels they
    vary);
@@ -50,7 +50,11 @@
    weights or 0/1 weights, D in {16, 32, 50} (D = 50: 200-byte fp32 and
    50-byte int8 rows, no 16-byte path), fp32 and int8, 1 and 4 shards in
    one launch, 21 * 512 and 26 * 512 bags -- bitwise equal to their plain
-   versions;
+   versions; and ragged_sls at DLRM-DCNv2's bags (D = 128, the 26
+   published bag lengths of 1 to 100 ids, B = 37 and 16,384), fp32 and
+   int8, with and without a mask, bitwise at 0/1 weights and within the
+   tolerance below with general weights, and on fp32 and int8 tables whose
+   last rows lie past element 2**31;
 3. slice phase: serves RMC1 and RMC4 at their published widths through
    ``repro_torch.launch.serve`` (fp32 and int8 cold tier, split and fused
    front end, batch 32 over a seeded zipfian stream plus one batch of
@@ -258,7 +262,7 @@
    ogbn-products beside its bytes bound and ``torch.sparse.mm``; and
    ``launch.train --arch graphsage-reddit`` (reduced and ``--full``);
    ``gnn_cpu``, ``gnn``, ``gnn_timing``, ``gnn_cli`` lines;
-18. dry-run phase (``launch/dryrun.py``): each of the ten kernels against
+18. dry-run phase (``launch/dryrun.py``): each of the kernels against
    its shape function (``kernels/fake.py``) at RMC4's widths, the kernel
    on real inputs and the shape function on fake copies (shape, dtype,
    device, strides equal); then RMC4 serve at batch 2048 (split, fused),
@@ -269,7 +273,19 @@
    arguments beside ``torch.cuda.max_memory_allocated`` and the roofline
    time beside the measured step (``dryrun`` lines); and ``fits_80gb`` of
    the cells phases 15-16 cut (false) and of their cuts (true;
-   ``dryrun_fits`` lines).
+   ``dryrun_fits`` lines);
+19. DLRM-DCNv2 phase: MLPerf's DLRM-DCNv2 at its published widths, bag
+   lengths and batch (16,384 items of 214 ids in 26 bags), each table cut
+   to at most DCN_ROWS rows (the int8 cold tier still runs past element
+   2**31), hot fraction 0.05 placed by ``observe`` and
+   ``plan_and_migrate``, served through ``models.dlrm.make_serve_step``
+   (split front end): launch counts zeroed just before the steps and read
+   just after (two ``ragged_sls`` launches a step, no other kernel), no
+   new signature after the first step, the lookup bitwise equal to the
+   plain path's and the scores within 1e-5 of it; then ``ragged_sls``
+   timed on a step's own tier inputs beside its plain version,
+   ``F.embedding_bag`` on the hot tier and the bytes bound (the ``timing``
+   row and the ``kernels`` entry of ``ragged_sls``; ``dcnv2`` line).
 
 ``--only`` runs the build and the named phases alone, for a quicker look,
 and prints neither of the last two lines; ``--only slice`` prints phase
@@ -647,15 +663,124 @@ def kernel_phase(gen: torch.Generator) -> None:
     n_tp = partial_pool_kernel_checks(gen)
     n_upd = apply_deltas_checks(gen)
     n_rec = recsys_kernel_checks(gen)
+    n_rag = ragged_kernel_checks(gen)
     torch.cuda.synchronize()
     print(f"kernel phase: {n_cases} cases + empty-hot cases + {n_edge} "
           f"per-entry edge cases + {n_oob} out-of-range id cases + {n_dot} "
           f"interaction cases + {n_dedup} "
           f"gather-once cases + {n_tp} partial-pool/resume cases + {n_upd} "
-          f"apply_deltas cases + {n_rec} recsys L = 1 cases passed; "
+          f"apply_deltas cases + {n_rec} recsys L = 1 cases + {n_rag} "
+          f"ragged_sls cases passed; "
           f"launches "
           f"{dict((k, v.launches) for k, v in build.KERNELS.items())}",
           flush=True)
+
+
+def ragged_edges() -> tuple:
+    """DLRM-DCNv2's bag edges: table t's ids in the columns
+    [edges[t], edges[t + 1]) of an item's 214."""
+    from repro_torch.configs.dlrm_dcnv2 import MULTI_HOT
+    return tuple(int(c) for c in np.cumsum((0,) + MULTI_HOT))
+
+
+def ragged_tol(table, idx, edges, owned, w, scales) -> torch.Tensor:
+    """2 * L_t * eps * sum_l |f_l * row_l| per output element of table
+    t's bag (the SLS tolerance, bag by bag)."""
+    from repro_torch.kernels import ref
+    a = ref.ragged_sls_ref(table.abs(), idx, edges, owned,
+                           None if w is None else w.abs(),
+                           None if scales is None else scales.abs())
+    L = torch.tensor([b - a for a, b in zip(edges, edges[1:])],
+                     dtype=torch.float32, device=a.device)
+    return 2 * L[None, :, None] * EPS * a
+
+
+def ragged_cost(table, idx, owned, w, scales, T) -> dict:
+    """What one ragged_sls launch must move: each distinct row it pools
+    once (in the table's storage type), every entry's id, mask, weight and
+    scale, and the (N, T, D) float32 output."""
+    N, C = idx.shape
+    D = table.shape[1]
+    safe = idx if owned is None else torch.where(owned, idx,
+                                                 torch.zeros_like(idx))
+    rows = torch.unique(safe).numel()
+    meta = idx.numel() * (4 + (owned is not None) + 4 * (w is not None)
+                          + 4 * (scales is not None))
+    return {"bytes": rows * D * table.element_size() + meta + N * T * D * 4,
+            "flops": N * C * D * (2 + (scales is not None))}
+
+
+def ragged_kernel_checks(gen: torch.Generator) -> int:
+    """``ragged_sls`` against its plain version at DLRM-DCNv2's bags: D =
+    128, the 26 published bag lengths (1 to 100 ids), B = 37 and 16,384
+    items of skewed ids, fp32 and int8 tables, with and without a mask;
+    bitwise at 0/1 weights, within :func:`ragged_tol` with general
+    weights.  Then int8 and fp32 tables of 2**24 + 4099 rows, whose last
+    rows start past element 2**31 (64-bit offsets): the 100-id bag reads
+    only those, every other bag anywhere, bitwise at 0/1 weights."""
+    from repro_torch.kernels import ops
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    edges = ragged_edges()
+    C, D = edges[-1], 128
+    n_cases = 0
+
+    def one(table, idx, owned, w, scales, tag, exact):
+        k = ops.ragged_sls(table, idx, edges, owned, w, scales)
+        p = ops.ragged_sls(table, idx, edges, owned, w, scales,
+                           impl="torch")
+        if exact:
+            assert_equal(k, p, tag)
+        else:
+            assert_close(k, p, ragged_tol(table, idx, edges, owned, w,
+                                          scales), tag)
+
+    V = 200_003
+    for storage in ("fp32", "int8"):
+        if storage == "int8":
+            table = torch.randint(-127, 128, (V, D), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+        else:
+            table = torch.randn((V, D), generator=gen, device="cuda")
+        for B in (37, 16384):
+            idx = (rand((B, C)) ** 3 * V).to(torch.int32)
+            scales = (rand((B, C), 1e-4, 2e-2) if storage == "int8"
+                      else None)
+            for masked in (False, True):
+                owned = rand((B, C)) < 0.6 if masked else None
+                for weighting in ("01", "general"):
+                    w = ((rand((B, C)) < 0.8).float() if weighting == "01"
+                         else rand((B, C), -2.0, 2.0))
+                    one(table, idx, owned, w, scales,
+                        f"ragged_sls D={D} {storage} B={B} mask={masked} "
+                        f"w={weighting}", weighting == "01")
+                    n_cases += 1
+        del table
+    # rows past element 2**31
+    far = (1 << 31) // D
+    V = far + 4099
+    a, b = edges[20], edges[21]                  # the 100-id bag
+    for storage, B in (("int8", 16384), ("fp32", 2048)):
+        if storage == "int8":
+            table = torch.randint(-127, 128, (V, D), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+        else:
+            table = torch.randn((V, D), generator=gen, device="cuda")
+        idx = (rand((B, C)) * V).to(torch.int32)
+        idx[:, a:b] = far + (rand((B, b - a)) * (V - far)).to(torch.int32)
+        scales = (rand((B, C), 1e-4, 2e-2) if storage == "int8" else None)
+        w = (rand((B, C)) < 0.9).float()
+        for masked in (False, True):
+            owned = rand((B, C)) < 0.6 if masked else None
+            one(table, idx, owned, w, scales,
+                f"ragged_sls past element 2**31 {storage} B={B} "
+                f"mask={masked}", True)
+            n_cases += 1
+        del table
+    torch.cuda.empty_cache()
+    return n_cases
 
 
 def dedup_kernel_checks(gen: torch.Generator) -> int:
@@ -5580,6 +5705,136 @@ def dryrun_phase(gen: torch.Generator) -> tuple:
     return lines, fits, launches
 
 
+DCN_ROWS = 4_000_000     # phase 19's cut of each DLRM-DCNv2 table
+DCN_BATCH = 16384        # the cell's batch
+DCN_STEPS = 4
+
+
+def dcnv2_phase(gen: torch.Generator) -> tuple:
+    """Phase 19: DLRM-DCNv2 at its published widths, bag lengths and batch,
+    each table cut to at most ``DCN_ROWS`` rows, int8 cold tier, served
+    through ``make_serve_step`` (see the module docstring).  Returns the
+    ``ragged_sls`` timing row and the launch counts of the serve steps."""
+    import torch.nn.functional as F
+    from repro_torch.configs.dlrm_dcnv2 import CONFIG
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import dlrm
+    from repro_torch.models.params import initialize
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = tuple(min(v, DCN_ROWS) for v in CONFIG.vocab_sizes)
+    mc = dataclasses.replace(CONFIG, vocab_sizes=rows, emb_num=max(rows))
+    edges = mc.bag_edges
+    eng, offs = dlrm.build_engine(mc, "cuda", hot_fraction=0.05,
+                                  storage="int8")
+    c = eng.cfg
+    check(c.cold_rows_total * c.dim > 2 ** 31,
+          f"dcnv2 phase: the cold tier ({c.cold_rows_total} rows) does not "
+          "run past element 2**31")
+    B = DCN_BATCH
+
+    def batch():
+        cols = [(rand((B, n)) ** 4 * v).to(torch.int64) + int(o)
+                for v, n, o in zip(rows, mc.bag_lengths, offs)]
+        return {"dense": torch.randn((B, mc.n_dense), generator=gen,
+                                     device="cuda"),
+                "indices": torch.cat(cols, 1).to(torch.int32),
+                "weights": (rand((B, edges[-1])) < 0.9).float()}
+
+    codes = torch.randint(-127, 128, (c.padded_rows, c.dim), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    # values of std ~0.01, the tables' init scale (uniform codes: ~73)
+    state = eng.from_codes(codes, rand((c.num_pages,), 1e-4, 2e-4))
+    del codes
+    batches = [batch() for _ in range(DCN_STEPS)]
+    for b in batches:
+        state = eng.observe(state, b["indices"], b["weights"])
+    state, stats = eng.plan_and_migrate(state)
+    model = initialize(dlrm.DLRM(mc, "cuda"), gen)
+    step = dlrm.make_serve_step(model, eng, front_end="split", dedup="off")
+    plain = dlrm.make_serve_step(model, eng, impl="torch", front_end="split",
+                                 dedup="off")
+    step(state, batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # ---- the serve steps: counts zeroed just before, read just after
+    eng.reset_plan_stats()
+    build.reset_launches()
+    outs = [step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    sig = eng.plan_stats()
+    check(launches["ragged_sls"] == 2 * DCN_STEPS,
+          f"dcnv2 phase: {launches['ragged_sls']} ragged_sls launches in "
+          f"{DCN_STEPS} steps, not two a step")
+    others = {k: v for k, v in launches.items() if k != "ragged_sls" and v}
+    check(not others, f"dcnv2 phase: other kernels launched: {others}")
+    check(sig["traces"] == 0 and sig["ragged"] == 1,
+          f"dcnv2 phase: signatures after warm-up {sig}")
+    for i, o in enumerate(outs):
+        check(bool(torch.isfinite(o).all() and (o > 0).all()
+                   and (o < 1).all()),
+              f"dcnv2 phase: step {i} scores not finite in (0, 1): "
+              f"{o.min().item()} to {o.max().item()}")
+    # ---- against the plain path
+    b = batches[0]
+    lk = eng.lookup(state, b["indices"], b["weights"], bag_edges=edges)
+    lp = eng.lookup(state, b["indices"], b["weights"], bag_edges=edges,
+                    impl="torch")
+    assert_equal(lk, lp, "dcnv2 phase: lookup kernel vs plain")
+    score_err = float((outs[0] - plain(state, b)).abs().max())
+    check(score_err <= 1e-5, f"dcnv2 phase: kernel vs plain scores differ "
+                             f"by {score_err:.3e}")
+    # ---- ragged_sls alone on the step's own tier inputs
+    local_row, owned, is_hot, scale = eng._address(state, b["indices"])
+    w = b["weights"]
+    T = len(edges) - 1
+    cold = (state.cold, local_row, edges, owned[0], w, scale)
+    hot = (state.hot, local_row, edges, is_hot, w, None)
+    for args, tier in ((cold, "cold"), (hot, "hot")):
+        assert_equal(ops.ragged_sls(*args), ops.ragged_sls(*args,
+                                                           impl="torch"),
+                     f"dcnv2 phase: ragged_sls {tier} tier vs plain")
+    timer = Timer()
+    ms = {t: timer(lambda a=a: ops.ragged_sls(*a))
+          for a, t in ((cold, "cold"), (hot, "hot"))}
+    plain_ms = {t: timer(lambda a=a: ops.ragged_sls(*a, impl="torch"))
+                for a, t in ((cold, "cold"), (hot, "hot"))}
+    # F.embedding_bag pools the hot tier's bags (N * T of them, in order)
+    hot_ids = torch.where(is_hot, local_row, 0).reshape(-1)
+    bag_off = (torch.arange(B, device="cuda")[:, None] * edges[-1]
+               + torch.tensor(edges[:-1], device="cuda")[None]).reshape(-1)
+    hot_w = (w * is_hot).reshape(-1)
+    lib = timer(lambda: F.embedding_bag(hot_ids, state.hot, bag_off,
+                                        mode="sum",
+                                        per_sample_weights=hot_w))
+    cc = ragged_cost(state.cold, local_row, owned[0], w, scale, T)
+    hc = ragged_cost(state.hot, local_row, is_hot, w, None, T)
+    row = {"name": "ragged_sls", "arch": "dlrm-dcnv2", "storage": "int8",
+           "rows_cut": DCN_ROWS, "batch": B, "entries": B * edges[-1],
+           "hot_share": float(is_hot.float().mean()),
+           "ms": ms["cold"] + ms["hot"], "cold_ms": ms["cold"],
+           "hot_ms": ms["hot"],
+           "plain_ms": plain_ms["cold"] + plain_ms["hot"],
+           "library_ms": lib, "library_of": "the hot tier",
+           **bound(cc["bytes"] + hc["bytes"], cc["flops"] + hc["flops"]),
+           "max_abs_err": 0.0}
+    del timer
+    line = {"cold_rows": c.cold_rows_total, "hot_rows": c.hot_rows,
+            "hot_pages": stats.get("hot_pages"), "setup_s": setup_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "score_err": score_err, "launches": launches["ragged_sls"],
+            "signatures": sig["plans"], "ragged_signatures": sig["ragged"]}
+    print("dcnv2 " + json.dumps(line), flush=True)
+    print(f"dcnv2 phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return row, launches
+
+
 def print_slice_rows(result) -> None:
     """The slice phase's kernel timings and serve steps (``timing`` and
     ``serve_step`` lines, the rows ``chip_ab.py`` reads), for ``--only
@@ -5592,7 +5847,8 @@ def print_slice_rows(result) -> None:
 
 
 PHASES = ("kernel", "slice", "runtime", "updates", "integrity", "faults",
-          "recsys", "paper", "train", "lm", "lm_train", "gnn", "dryrun")
+          "recsys", "paper", "train", "lm", "lm_train", "gnn", "dryrun",
+          "dcnv2")
 
 
 def main(argv=None) -> None:
@@ -5648,7 +5904,9 @@ def main(argv=None) -> None:
                "lm": lambda: lm_phase(gen),
                "lm_train": lambda: lm_train_phase(gen),
                "gnn": lambda: gnn_phase(gen),
-               "dryrun": lambda: dryrun_phase(gen)}
+               "dryrun": lambda: dryrun_phase(gen),
+               "dcnv2": lambda: print("timing " + json.dumps(
+                   dcnv2_phase(gen)[0]), flush=True)}
         for p in only:
             run[p]()
             torch.cuda.empty_cache()
@@ -5681,6 +5939,9 @@ def main(argv=None) -> None:
     gnn_phase(gen)
     torch.cuda.empty_cache()
     _, _, dry_launches = dryrun_phase(gen)
+    torch.cuda.empty_cache()
+    dcn_row, dcn_launches = dcnv2_phase(gen)
+    details.append(dcn_row)
     torch.cuda.empty_cache()
     for d in details:
         print("timing " + json.dumps(d), flush=True)
@@ -5734,6 +5995,24 @@ def main(argv=None) -> None:
                 "shape": f"rmc4 fp32 {d['rows']} rows x {d['dim']} "
                          f"({d['hot_rows']} hot), library index_add_ per "
                          "tier"})
+            continue
+        if k.name == "ragged_sls":     # phase 19's path, DLRM-DCNv2's bags
+            d = dcn_row
+            kernels.append({
+                "name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": dcn_launches[k.name],
+                **{key: d[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "cold_ms",
+                                           "hot_ms")},
+                "runtime_launches": rt_launches[k.name],
+                "paper_launches": paper_launches[k.name],
+                "train_launches": train_launches[k.name],
+                "dryrun_launches": dry_launches[k.name],
+                "shape": f"dlrm-dcnv2 int8 batch {d['batch']}, 214 ids in "
+                         f"26 bags, tables cut to {d['rows_cut']} rows; "
+                         "ms: cold + hot launch, library: the hot tier's "
+                         "F.embedding_bag"})
             continue
         row, path = pick[k.name]
         d = next(x for x in details if x["name"] == row

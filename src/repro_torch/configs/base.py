@@ -103,21 +103,80 @@ class RecConfig:
 
 @dataclass(frozen=True)
 class DLRMConfig:
-    """Paper Table I models (RMC1-4)."""
+    """Paper Table I models (RMC1-4): ``n_tables`` tables of ``emb_num``
+    rows, bags of ``pooling`` lookups, the pairwise-dot interaction."""
     name: str
     emb_num: int                      # rows per table
     emb_dim: int
     bottom_mlp: Tuple[int, ...]
     top_mlp: Tuple[int, ...]
     n_tables: int = 8
-    pooling: int = 8                  # paper default: 8 lookups per bag
+    pooling: Union[int, Tuple[int, ...]] = 8  # lookups per bag: one for
+    #                                   every table (paper default 8), or
+    #                                   a tuple of one a table
     n_dense: int = 13
     family: str = "dlrm"
     dtype: str = "float32"
     source: str = "PIFS-Rec Table I"
 
+    @property
+    def interaction(self) -> str:
+        return "dot"
+
+    @property
+    def table_rows(self) -> Tuple[int, ...]:
+        """Each table's rows."""
+        return (self.emb_num,) * self.n_tables
+
+    @property
+    def bag_lengths(self) -> Tuple[int, ...]:
+        """Each table's lookups per bag."""
+        if isinstance(self.pooling, tuple):
+            return self.pooling
+        return (self.pooling,) * self.n_tables
+
+    @property
+    def bag_edges(self) -> Optional[Tuple[int, ...]]:
+        """The column edges of each item's bags in a (B, sum of the
+        lengths) batch, table t's bag in ``[e[t], e[t + 1])``, where the
+        lengths differ; None where every bag has one length L and a batch
+        is (B, T, L)."""
+        lengths = self.bag_lengths
+        if len(set(lengths)) == 1:
+            return None
+        edges = [0]
+        for n in lengths:
+            edges.append(edges[-1] + n)
+        return tuple(edges)
+
     def shapes(self) -> Dict[str, RecShape]:
         return REC_SHAPES
+
+
+@dataclass(frozen=True)
+class DLRMDCNConfig(DLRMConfig):
+    """MLPerf's DLRM-DCNv2: tables of their own row counts
+    (``vocab_sizes``; ``emb_num`` the largest) and bag lengths
+    (``pooling`` a tuple), the pooled features and the bottom MLP's output
+    concatenated and crossed by ``cross_layers`` low-rank cross layers of
+    rank ``cross_rank`` in place of the pairwise dots."""
+    vocab_sizes: Tuple[int, ...] = ()
+    cross_layers: int = 3
+    cross_rank: int = 512
+
+    def __post_init__(self):
+        if (len(self.vocab_sizes) != self.n_tables
+                or len(self.bag_lengths) != self.n_tables):
+            raise ValueError(f"{self.name}: vocab_sizes and pooling must "
+                             f"list {self.n_tables} tables")
+
+    @property
+    def interaction(self) -> str:
+        return "dcn"
+
+    @property
+    def table_rows(self) -> Tuple[int, ...]:
+        return self.vocab_sizes
 
 
 @dataclass(frozen=True)
@@ -205,7 +264,7 @@ def _ensure_loaded() -> None:
     # import side-effect registration
     from repro_torch.configs import (  # noqa: F401
         autoint, bst, dcn_v2, deepseek_67b, deepseek_v3_671b,
-        granite_moe_1b_a400m, graphsage_reddit, llama3_2_3b,
+        dlrm_dcnv2, granite_moe_1b_a400m, graphsage_reddit, llama3_2_3b,
         nemotron_4_340b, rmc, sasrec)
 
 
@@ -217,12 +276,13 @@ def get_config(name: str) -> Config:
 
 
 def list_archs(assigned_only: bool = True) -> List[str]:
-    """The registered ids, sorted; ``assigned_only`` leaves out the
-    paper's own RMC models, as the reference does."""
+    """The registered ids, sorted; ``assigned_only`` leaves out the DLRM
+    family (the paper's own RMC models, as the reference does, and MLPerf's
+    DLRM-DCNv2, which the reference does not hold)."""
     _ensure_loaded()
     names = sorted(_REGISTRY)
     if assigned_only:
-        names = [n for n in names if not n.startswith("rmc")]
+        names = [n for n in names if _REGISTRY[n].family != "dlrm"]
     return names
 
 
@@ -272,6 +332,12 @@ def reduced(cfg: Config) -> Config:
         if cfg.d_attn:
             kw["d_attn"] = 8
         return replace(cfg, **kw)
+    if isinstance(cfg, DLRMDCNConfig):
+        return replace(cfg, emb_num=64, emb_dim=16,
+                       vocab_sizes=tuple(min(v, 64) for v in cfg.table_rows),
+                       pooling=tuple(min(n, 5) for n in cfg.bag_lengths),
+                       bottom_mlp=(32, 16, 16), top_mlp=(16, 8, 1),
+                       cross_rank=8)
     if isinstance(cfg, DLRMConfig):
         return replace(cfg, emb_num=256, emb_dim=16, n_tables=4, pooling=4,
                        bottom_mlp=(32, 16, 16), top_mlp=(16, 8, 1))

@@ -59,6 +59,8 @@ from repro_torch.trace import span
 
 FUSED_BLOCK_B = 32   # the reference's fused batch tile (``block_b``), which
 #                      its fused staging budget counts
+MOVE_BLOCK_PAGES = 1 << 14  # pages packed or promoted at a time by
+#                            from_codes and an in-place migrate
 
 
 @dataclasses.dataclass
@@ -211,6 +213,52 @@ class PIFSEmbeddingEngine:
             cold_vals = dense
         return self._pack(cold_vals, dense, scales, table, None)
 
+    def from_codes(self, codes: torch.Tensor, scales: torch.Tensor,
+                   table: Optional[PageTable] = None) -> EngineState:
+        """Pack an int8 table given as its codes, (padded_rows, D) int8,
+        and its per-page scales (num_pages,): cold slots take the codes
+        verbatim and hot slots ``code * scale``, as :meth:`pack_state`
+        packs ``(codes, dequantized codes, scales)``, bit for bit.  Page
+        range by page range (``MOVE_BLOCK_PAGES``): the cold tier is the
+        only copy of the table it makes, so a table of most of the card's
+        memory packs beside its codes."""
+        c = self.cfg
+        if not self.quantized:
+            raise TypeError("from_codes packs an int8 cold tier; use "
+                            "from_dense for storage='fp32'")
+        if (tuple(codes.shape) != (c.padded_rows, c.dim)
+                or codes.dtype != torch.int8
+                or tuple(scales.shape) != (c.num_pages,)):
+            raise ValueError(
+                f"codes must be ({c.padded_rows}, {c.dim}) int8 and scales "
+                f"({c.num_pages},); got {tuple(codes.shape)} {codes.dtype} "
+                f"and {tuple(scales.shape)}")
+        table = self._table(table)
+        ps, D = c.page_size, c.dim
+        scales = self._as(scales, torch.float32)
+        cold = torch.zeros((c.cold_rows_total, D), dtype=torch.int8,
+                           device=self.device)
+        hot = torch.zeros((c.hot_rows, D), dtype=torch.float32,
+                          device=self.device)
+        cold_pages, hot_pages = cold.view(-1, ps, D), hot.view(-1, ps, D)
+        shard = table.page_to_shard.long()
+        slot = table.page_to_slot.long()
+        for p0 in range(0, c.num_pages, MOVE_BLOCK_PAGES):
+            p1 = min(p0 + MOVE_BLOCK_PAGES, c.num_pages)
+            src = codes[p0 * ps:p1 * ps].to(self.device).view(-1, ps, D)
+            sh, sl = shard[p0:p1], slot[p0:p1]
+            on_hot = sh == HOT_SHARD
+            cold_at = torch.nonzero(~on_hot)[:, 0]
+            hot_at = torch.nonzero(on_hot)[:, 0]
+            cold_pages[(sh * c.pages_per_shard + sl)[cold_at]] = src[cold_at]
+            hot_pages[sl[hot_at]] = quant.dequantize_pages(
+                src[hot_at], scales[p0 + hot_at])
+        return EngineState(
+            cold=cold, hot=hot, page_scales=scales,
+            page_to_shard=table.page_to_shard,
+            page_to_slot=table.page_to_slot,
+            counts=torch.zeros(c.num_pages, device=self.device))
+
     def _pack(self, codes, values, scales, table: PageTable,
               counts) -> EngineState:
         c = self.cfg
@@ -309,9 +357,14 @@ class PIFSEmbeddingEngine:
                weights: Optional[torch.Tensor] = None, mode: str = "pifs",
                combine: str = "psum", impl: str = "cuda",
                dedup: Optional[str] = None,
-               tiers: str = "all") -> torch.Tensor:
+               tiers: str = "all", bag_edges=None) -> torch.Tensor:
         """Pooled lookup: indices (B, G, L) int32 global row ids, optional
-        weights (B, G, L) f32 -> (B, G, D) f32.  ``tiers='hot_only'`` reads
+        weights (B, G, L) f32 -> (B, G, D) f32.  With ``bag_edges`` the T
+        bags of an item differ in length: indices and weights are (B, C),
+        table t's bag in the columns [bag_edges[t], bag_edges[t + 1]), and
+        the result is (B, T, D), one ``ragged_sls`` launch a tier (pifs
+        and beacon, dedup off; the edges key the signature).
+        ``tiers='hot_only'`` reads
         the hot tier only (cold contributions are exact zeros; the serving
         brown-out rung).  ``combine='psum_scatter'`` returns the same
         values as 'psum' and raises where the reference cannot split the
@@ -329,6 +382,16 @@ class PIFSEmbeddingEngine:
             self._check_ids(indices)
         key = ("lookup", mode, combine, impl, self.cfg.storage, dedup, tiers,
                tuple(indices.shape), weights is not None)
+        if bag_edges is not None:
+            edges = tuple(int(c) for c in bag_edges)
+            if mode == "pond" or dedup != "off":
+                raise ValueError(
+                    "bags that differ in length take the pifs datapath "
+                    f"with dedup off; got mode {mode!r}, dedup {dedup!r}")
+            self._note_signature(("lookup_ragged",) + key[1:] + (edges,))
+            return self._lookup_ragged(state, indices, weights, edges,
+                                       combine=combine, impl=impl,
+                                       tiers=tiers)
         dedup_on = self._resolve_dedup(key, dedup, state, indices)
         self._note_signature(key)
         return self._lookup_block(state, indices, weights, mode=mode,
@@ -526,7 +589,8 @@ class PIFSEmbeddingEngine:
 
     def plan_stats(self) -> dict:
         """Lookups since the last reset (``calls``); the lookup and
-        interact signatures served (``plans``) and those first seen since
+        interact signatures served (``plans``), of them the lookups of bags
+        that differ in length (``ragged``), and those first seen since
         the last reset (``traces``); one front-end resolution record per
         ``lookup_interact`` signature under ``'front_end'``; and, once a
         lookup asked for ``dedup`` 'auto' or 'on', one dedup resolution
@@ -537,6 +601,7 @@ class PIFSEmbeddingEngine:
         seen after serving's warmup is a bucket the warmup missed."""
         out = {"plans": len(self._seen), "traces": self._traces,
                "calls": self._calls,
+               "ragged": sum(k[0] == "lookup_ragged" for k in self._seen),
                "front_end": {self._key_label(k): dict(v)
                              for k, v in self._fe_plans.items()}}
         if self._dedup_plans:
@@ -564,8 +629,11 @@ class PIFSEmbeddingEngine:
             head, tail = "interact:", f"/fe={front_end}"
         else:
             (_, mode, combine, impl, storage, dedup, tiers, shape,
-             weighted) = key
+             weighted, *bags) = key
             head, tail = "", "" if tiers == "all" else f"/{tiers}"
+            if bags:
+                tail += "/bags=" + "-".join(
+                    str(b - a) for a, b in zip(bags[0], bags[0][1:]))
         return (f"{head}{mode}/{combine}/{impl}/{storage}/dedup={dedup}"
                 f"{tail}/idx={'x'.join(map(str, shape))}"
                 + ("+w" if weighted else ""))
@@ -609,7 +677,16 @@ class PIFSEmbeddingEngine:
 
         One device holds every shard's cold tier, so no all-gather: the new
         tiers gather from the old cold and hot tiers apart, and the
-        concatenation the reference gathers from is never built."""
+        concatenation the reference gathers from is never built.
+
+        ``state`` is consumed: where the move's new tiers and row maps do
+        not fit in the device's free memory (:meth:`_move_in_place`), it
+        moves only the pages whose place changes, in the tiers of
+        ``state``, which the returned state then shares -- for a tier of
+        most of the card's memory.  Every page's rows equal the functional
+        move's; slots no page maps to keep what they held."""
+        if self._move_in_place(state):
+            return self._migrate_inplace(state, new_table, count_decay)
         c = self.cfg
         C = c.cold_rows_total
         cold_src, hot_src = placement_gather_indices(c, state.page_table,
@@ -641,6 +718,83 @@ class PIFSEmbeddingEngine:
         new_hot[hs_pos] = state.hot[hs_hot]
         return EngineState(
             cold=new_cold, hot=new_hot, page_scales=state.page_scales,
+            page_to_shard=self._as(new_table.page_to_shard, torch.int32),
+            page_to_slot=self._as(new_table.page_to_slot, torch.int32),
+            counts=state.counts * count_decay)
+
+    def _move_in_place(self, state: EngineState) -> bool:
+        """Whether :meth:`migrate` moves pages in place: on a CUDA device
+        whose free memory (``mem_get_info`` plus the allocator's cached
+        blocks) cannot hold the functional move's new tiers, its dequantized hot
+        rows and its row maps (int64, two per storage row)."""
+        dev = state.cold.device
+        if dev.type != "cuda":
+            return False
+        c = self.cfg
+        need = (state.cold.nbytes + 2 * state.hot.nbytes
+                + 16 * (c.cold_rows_total + c.hot_rows))
+        free, _ = torch.cuda.mem_get_info(dev)
+        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+            dev)
+        return need > free
+
+    def _migrate_inplace(self, state: EngineState, new_table: PageTable,
+                         count_decay: float) -> EngineState:
+        """:meth:`migrate` in place: every page that lands in the
+        cold tier (a demotion, re-quantized on its carried scale, or a cold
+        move) and every hot-to-hot move is read into a buffer before any
+        write; promotions are then dequantized from the cold tier, still
+        unwritten, ``MOVE_BLOCK_PAGES`` at a time, and the buffers
+        written."""
+        c = self.cfg
+        ps, D = c.page_size, c.dim
+        old_sh = host(state.page_to_shard)
+        old_sl = host(state.page_to_slot).astype(np.int64)
+        new_sh = host(new_table.page_to_shard).astype(np.int32)
+        new_sl = host(new_table.page_to_slot).astype(np.int64)
+        moved = np.nonzero((old_sh != new_sh) | (old_sl != new_sl))[0]
+        was_hot = old_sh[moved] == HOT_SHARD
+        is_hot = new_sh[moved] == HOT_SHARD
+        cold_pages = state.cold.view(-1, ps, D)
+        hot_pages = state.hot.view(-1, ps, D)
+
+        def at(x):
+            return torch.as_tensor(x, device=self.device)
+
+        def cold_slot(sh, sl):
+            return sh.astype(np.int64) * c.pages_per_shard + sl
+
+        def read(pages):
+            """The pages' rows in the cold tier's dtype, from either tier."""
+            out = torch.empty((len(pages), ps, D), dtype=self.cold_dtype,
+                              device=self.device)
+            from_hot = old_sh[pages] == HOT_SHARD
+            h, k = np.nonzero(from_hot)[0], np.nonzero(~from_hot)[0]
+            rows = hot_pages[at(old_sl[pages[h]])]
+            if self.quantized:
+                rows = quant.quantize_rows(
+                    rows, state.page_scales[at(pages[h])][:, None, None])
+            out[at(h)] = rows
+            out[at(k)] = cold_pages[at(cold_slot(old_sh[pages[k]],
+                                                 old_sl[pages[k]]))]
+            return out
+
+        to_cold = moved[~is_hot]
+        hot_moves = moved[is_hot & was_hot]
+        promoted = moved[is_hot & ~was_hot]
+        cold_buf = read(to_cold)
+        hot_buf = hot_pages[at(old_sl[hot_moves])]
+        for b0 in range(0, len(promoted), MOVE_BLOCK_PAGES):
+            pg = promoted[b0:b0 + MOVE_BLOCK_PAGES]
+            rows = cold_pages[at(cold_slot(old_sh[pg], old_sl[pg]))]
+            if self.quantized:
+                rows = quant.dequantize_pages(rows, state.page_scales[at(pg)])
+            hot_pages[at(new_sl[pg])] = rows
+        hot_pages[at(new_sl[hot_moves])] = hot_buf
+        cold_pages[at(cold_slot(new_sh[to_cold], new_sl[to_cold]))] = \
+            cold_buf
+        return EngineState(
+            cold=state.cold, hot=state.hot, page_scales=state.page_scales,
             page_to_shard=self._as(new_table.page_to_shard, torch.int32),
             page_to_slot=self._as(new_table.page_to_slot, torch.int32),
             counts=state.counts * count_decay)
@@ -874,6 +1028,26 @@ class PIFSEmbeddingEngine:
         # the reference adds the summed cold partials and hot_out in this
         # operand order
         return (cold_out + hot_out).reshape(b, G, -1)
+
+    def _lookup_ragged(self, state: EngineState, idx: torch.Tensor,
+                       weights: Optional[torch.Tensor], edges: tuple, *,
+                       combine: str, impl: str, tiers: str) -> torch.Tensor:
+        """:meth:`_lookup_block`'s pifs datapath for bags that differ in
+        length: (B, C) entries -> (B, T, D), the hot tier in one launch and
+        every cold shard's partial in another, summed in shard order, then
+        ``+ hot``."""
+        b = idx.shape[0]
+        if combine == "psum_scatter":
+            self._check_scatter("pifs", tiers, b, b * (len(edges) - 1))
+        local_row, owned, is_hot, scale = self._address(state, idx)
+        hot_out = sls_ops.ragged_partial_sls_dense(
+            state.hot, local_row, is_hot, edges, weights, impl=impl)
+        if tiers == "hot_only":
+            return hot_out
+        cold_out = shard_sum(sls_ops.ragged_partial_sls_dense(
+            state.cold, local_row, owned, edges, weights, impl=impl,
+            scales=scale))
+        return cold_out + hot_out
 
     def _pond_cold(self, state: EngineState, local_row: torch.Tensor,
                    owned: torch.Tensor, w: Optional[torch.Tensor],

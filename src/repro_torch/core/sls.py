@@ -229,6 +229,33 @@ def masked_partial_sls_dense(local_storage: torch.Tensor,
                           scales, impl=impl)
 
 
+def ragged_partial_sls_dense(local_storage: torch.Tensor,
+                             local_rows: torch.Tensor, owned: torch.Tensor,
+                             edges, weights: Optional[torch.Tensor] = None,
+                             impl: str = "cuda",
+                             scales: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """:func:`masked_partial_sls_dense` for bags that differ in length:
+    (B, C) entries, table t's bag in the columns [edges[t], edges[t + 1])
+    -> (B, T, D), each bag in fixed entry order (``ops.ragged_sls``).
+    ``owned`` (S, B, C) pools the S shards into (S, B, T, D) partials in
+    one launch, as stacked batches of bags on the whole tier."""
+    if owned.dim() == 2:
+        return ops.ragged_sls(local_storage, local_rows, edges, owned,
+                              weights, scales, impl=impl)
+    S = owned.shape[0]
+    if S == 1:
+        return ragged_partial_sls_dense(local_storage, local_rows, owned[0],
+                                        edges, weights, impl, scales)[None]
+    B, C = local_rows.shape
+    rows = _stacked_rows(local_rows, S, local_storage.shape[0] // S)
+    rep = (lambda t: None if t is None else t.repeat(S, 1))
+    out = ops.ragged_sls(local_storage, rows.reshape(S * B, C),
+                         edges, owned.reshape(S * B, C), rep(weights),
+                         rep(scales), impl=impl)
+    return out.reshape((S, B) + out.shape[1:])
+
+
 def fused_front_end_dense(cold_storage: torch.Tensor,
                           hot_storage: torch.Tensor, x: torch.Tensor,
                           local_rows: torch.Tensor, owned: torch.Tensor,

@@ -7,7 +7,8 @@ Each ``csrc/<stem>.cu`` has a plain C interface and compiles on its own with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 A kernel that varies another shares its source with it: the gather-once
-(dedup) ``masked_sls_dedup`` lives in ``masked_sls.cu``;
+(dedup) ``masked_sls_dedup`` and the pooling of bags that differ in
+length, ``ragged_sls``, live in ``masked_sls.cu``;
 ``fused_front_end_dedup`` and the partial pools ``fused_partial_pool`` and
 ``fused_partial_pool_dedup`` in ``fused_front_end.cu``; ``fused_resume`` in
 ``dot_interaction.cu``.  ``apply_deltas`` (``apply_deltas.cu``) and
@@ -74,6 +75,10 @@ KERNELS: Dict[str, KernelInfo] = {k.name: k for k in (
                "src/repro/kernels/interaction.py:64 (dot_interaction_pallas)"),
     KernelInfo("fused_front_end",
                "src/repro/kernels/sls.py:614 (fused_front_end_pallas)"),
+    KernelInfo("ragged_sls",
+               "none: the reference pools bags of one length (the split "
+               "path's masked_sls over bags that differ in length)",
+               stem="masked_sls"),
     KernelInfo("masked_sls_dedup",
                "src/repro/kernels/sls.py:304 (masked_sls_dedup_pallas)",
                stem="masked_sls"),

@@ -31,6 +31,20 @@
 // threads, so that batch 32 (256 bags) spreads over the SMs; int8 in 4- or
 // 16-code chunks, a 16-code chunk held raw until its add.  The launch
 // shape is the wrapper's (sls.py: sls_shape).
+//
+// ragged_sls replaces no Pallas kernel: the reference pools bags of one
+// length L.  It pools T tables whose bags differ in length (MLPerf
+// DLRM-DCNv2: 1 to 100 ids) from one (N, C) batch, table t's bag in the
+// columns [c_t, c_{t+1}) of the T + 1 edges, into (N, T, D) in one launch:
+// out[n, t] = sum over l in [c_t, c_{t+1}) of f[n,l] * row[n,l], in that
+// order, with masked_sls's operands, fmaf order and row rule, so it equals
+// the plain version (ref.ragged_sls_ref) bit for bit.  Bound as
+// masked_sls.  Balance: a team walks k_t = max(1, team / L_t) bags of one
+// table as one stream of entries (a run of metadata may span bags; the
+// sum is stored at each bag's end), so a run of single-id bags fills the
+// team as a long bag does; the grid takes the tables longest bags first,
+// so the long walks start first and the short ones fill the tail.
+// Element offsets are 64-bit.
 #include "common.cuh"
 #include "gather_once.cuh"
 
@@ -222,5 +236,204 @@ extern "C" int masked_sls_dedup(const void* table, int itemsize, int64_t V,
   else if (itemsize == 1 && vec == 1) SLS_DEDUP(int8_t, 1);
   else return static_cast<int>(cudaErrorInvalidValue);
 #undef SLS_DEDUP
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ ragged
+constexpr int RAGGED_MAX_TABLES = 128;
+
+// The launch's work list, passed by value: the tables in the order of
+// their blocks (longest bags first), the bags each team of a table walks,
+// each table's first block and the column edges c_t.
+struct RaggedPlan {
+  int n_tables;
+  int table[RAGGED_MAX_TABLES];          // group g -> table t
+  int bags[RAGGED_MAX_TABLES];           // group g: bags per team, k_t
+  int block0[RAGGED_MAX_TABLES + 1];     // group g's first block; the end
+  int64_t edge[RAGGED_MAX_TABLES + 1];   // column edges c_0 .. c_T
+};
+
+// A team walks bags [first, first + nb) of table t as one stream of
+// entries s = q * L + l (bag q, entry l), a run of `team` entries at a
+// time: the run's kept entries land in tm in stream order with their bag
+// in tq; each bag's sum is stored when the stream passes its end (a bag
+// with no kept entry stores zeros).
+template <typename T, int VEC, int U>
+__global__ void __launch_bounds__(SLS_THREADS) ragged_sls_kernel(
+    const T* __restrict__ table, int64_t V, int D,
+    const int32_t* __restrict__ idx, const uint8_t* __restrict__ owned,
+    const float* __restrict__ w, const float* __restrict__ scales,
+    float* __restrict__ out, int N, int64_t C, int team,
+    const RaggedPlan plan) {
+  constexpr bool kScaled = sizeof(T) == 1;   // int8 rows
+  __shared__ PlanEntry meta[SLS_THREADS];
+  __shared__ int bag_of[SLS_THREADS];
+  int g = 0;                                 // the last group that starts
+  int hi = plan.n_tables - 1;                // at or before this block
+  while (g < hi) {
+    const int mid = (g + hi + 1) / 2;
+    if (plan.block0[mid] <= static_cast<int>(blockIdx.x)) g = mid;
+    else hi = mid - 1;
+  }
+  const int t = plan.table[g];
+  const int64_t c0 = plan.edge[t];
+  const int L = static_cast<int>(plan.edge[t + 1] - c0);
+  const int k = plan.bags[g];
+  const int lane = threadIdx.x % team;
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x - plan.block0[g]) *
+           (blockDim.x / team) + threadIdx.x / team) * k;
+  const int nb = static_cast<int>(
+      first < N ? (N - first < k ? N - first : k) : 0);
+  const int n = nb * L;                      // this team's entries
+  const int stream_end = k * L;              // the same for the whole block
+  const int chunks = D / VEC;
+  PlanEntry* tm = meta + (threadIdx.x - lane);
+  int* tq = bag_of + (threadIdx.x - lane);
+  const int64_t bag_stride = static_cast<int64_t>(plan.n_tables) * D;
+  float* dst = out + first * bag_stride + static_cast<int64_t>(t) * D;
+  for (int cg = 0; cg < chunks; cg += team) {
+    const int c = cg + lane;
+    const bool active = nb > 0 && c < chunks;
+    float acc[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+    int cur = 0;                             // the bag acc holds
+    for (int s0 = 0; s0 < stream_end; s0 += team) {
+      const int s = s0 + lane;
+      const bool mine = s < n;
+      const int q = mine ? s / L : 0;
+      const int64_t e = (first + q) * C + c0 + (s - q * L);
+      __syncwarp();
+      PlanEntry p;
+      const bool keep = plan_load<kScaled>(
+          mine, e, mine ? entry_factor(true, w, e) : 0.0f, owned,
+          PerEntry{idx, scales, V}, D, &p);
+      int pos;
+      const int m = team_compact(keep, lane, team, &pos);
+      if (keep) {
+        tm[pos] = p;
+        tq[pos] = q;
+      }
+      __syncwarp();
+      if (!active) continue;
+      for (int j0 = 0; j0 < m; j0 += U) {
+        RowChunk<T, VEC> r[U];
+        gather_kept<T, VEC, U>(table, tm, j0, m, c, r);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + u < m) {
+            for (const int qb = tq[j0 + u]; cur < qb; ++cur) {
+              store_row<VEC>(dst + cur * bag_stride + c * VEC, acc);
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+            }
+            float v[VEC];
+            r[u].to_float(v);
+            accumulate<VEC>(acc, tm[j0 + u].f, v,
+                            kScaled ? &tm[j0 + u].scale : nullptr);
+          }
+        }
+      }
+    }
+    if (!active) continue;
+    for (; cur < nb; ++cur) {
+      store_row<VEC>(dst + cur * bag_stride + c * VEC, acc);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+    }
+  }
+}
+
+// The work list for N items of T tables (edges c_0..c_T, host memory) and
+// blocks of `teams` teams of `team` threads; returns the blocks, or -1 on
+// edges that do not rise from 0, or too many tables or blocks.
+static int64_t ragged_plan(const int64_t* edges, int T, int N, int teams,
+                           int team, RaggedPlan* plan) {
+  if (T < 1 || T > RAGGED_MAX_TABLES || edges[0] != 0) return -1;
+  plan->n_tables = T;
+  for (int t = 0; t <= T; ++t) {
+    if (t > 0 && edges[t] < edges[t - 1]) return -1;
+    plan->edge[t] = edges[t];
+  }
+  for (int g = 0; g < T; ++g) {              // insertion sort, stable:
+    plan->table[g] = g;                      // longest bags first
+    for (int h = g; h > 0; --h) {
+      const int a = plan->table[h - 1], b = plan->table[h];
+      if (edges[b + 1] - edges[b] <= edges[a + 1] - edges[a]) break;
+      plan->table[h - 1] = b;
+      plan->table[h] = a;
+    }
+  }
+  int64_t blocks = 0;
+  for (int g = 0; g < T; ++g) {
+    const int t = plan->table[g];
+    const int64_t L = edges[t + 1] - edges[t];
+    const int k = L >= team ? 1 : (L > 0 ? static_cast<int>(team / L) : team);
+    const int64_t per = static_cast<int64_t>(teams) * k;
+    plan->bags[g] = k;
+    plan->block0[g] = static_cast<int>(blocks);
+    blocks += (N + per - 1) / per;
+    if (blocks > 0x7fffffff) return -1;
+  }
+  plan->block0[T] = static_cast<int>(blocks);
+  return blocks;
+}
+
+template <typename T, int VEC>
+static void launch_ragged(const void* table, int64_t V, int D, int inflight,
+                          const int32_t* idx, const uint8_t* owned,
+                          const float* w, const float* scales, float* out,
+                          int N, int64_t C, int threads, int64_t blocks,
+                          const RaggedPlan& plan, cudaStream_t stream) {
+  const int team = team_size(D / VEC);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  auto t = static_cast<const T*>(table);
+  if constexpr (VEC < 16) {
+    if (inflight == 8) {
+      ragged_sls_kernel<T, VEC, 8><<<grid, threads, 0, stream>>>(
+          t, V, D, idx, owned, w, scales, out, N, C, team, plan);
+      return;
+    }
+  }
+  ragged_sls_kernel<T, VEC, 4><<<grid, threads, 0, stream>>>(
+      t, V, D, idx, owned, w, scales, out, N, C, team, plan);
+}
+
+// table (V, D) float32 or int8 codes (itemsize 4 / 1); idx (N, C) int32
+// row ids (clamp_row); owned (N, C) bool or null (every entry); w (N, C)
+// float32 or null; scales (N, C) float32, given exactly for an int8 table;
+// out (N, T, D) float32; edges: the T + 1 column edges, in host memory,
+// c_0 = 0 and c_T = C.  vec, inflight and threads as for masked_sls.
+extern "C" int ragged_sls(const void* table, int itemsize, int64_t V, int D,
+                          int vec, int inflight, const void* idx,
+                          const void* owned, const void* w,
+                          const void* scales, void* out, int N, int T,
+                          const int64_t* edges, int threads, void* stream) {
+  if (!sls_shape_ok(D, vec, inflight, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RaggedPlan plan;
+  const int team = team_size(D / vec);
+  const int64_t blocks = ragged_plan(edges, T, N, threads / team, team,
+                                     &plan);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const int64_t C = edges[T];
+  auto s = static_cast<cudaStream_t>(stream);
+  auto i = static_cast<const int32_t*>(idx);
+  auto m = static_cast<const uint8_t*>(owned);
+  auto wf = static_cast<const float*>(w);
+  auto sc = static_cast<const float*>(scales);
+  auto o = static_cast<float*>(out);
+#define RAGGED(T_, VEC)                                                     \
+  launch_ragged<T_, VEC>(table, V, D, inflight, i, m, wf, sc, o, N, C,      \
+                         threads, blocks, plan, s)
+  if (itemsize == 4 && vec == 4) RAGGED(float, 4);
+  else if (itemsize == 4 && vec == 1) RAGGED(float, 1);
+  else if (itemsize == 1 && vec == 16) RAGGED(int8_t, 16);
+  else if (itemsize == 1 && vec == 4) RAGGED(int8_t, 4);
+  else if (itemsize == 1 && vec == 1) RAGGED(int8_t, 1);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef RAGGED
   return static_cast<int>(cudaGetLastError());
 }

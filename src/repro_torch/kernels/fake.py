@@ -39,6 +39,16 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
                        device=table.device)
 
 
+def ragged_sls(table: torch.Tensor, indices: torch.Tensor, edges,
+               owned: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    edges = _sls.check_ragged_sls(table, indices, edges, owned, weights,
+                                  scales)
+    return torch.empty((indices.shape[0], len(edges) - 1, table.shape[1]),
+                       dtype=F32, device=table.device)
+
+
 def masked_sls_dedup(table: torch.Tensor, unique_rows: torch.Tensor,
                      slots: torch.Tensor, owned: torch.Tensor,
                      n_slots: torch.Tensor,
@@ -142,6 +152,7 @@ def wrappers() -> dict:
             "dot_interaction": _interaction.dot_interaction,
             "fused_front_end": _sls.fused_front_end,
             "masked_sls_dedup": _sls.masked_sls_dedup,
+            "ragged_sls": _sls.ragged_sls,
             "fused_front_end_dedup": _sls.fused_front_end_dedup,
             "fused_partial_pool": _sls.fused_partial_pool,
             "fused_partial_pool_dedup": _sls.fused_partial_pool_dedup,
@@ -173,6 +184,7 @@ def plain_versions() -> dict:
             "dot_interaction": ref.dot_interaction_ref,
             "fused_front_end": ref.fused_front_end_ref,
             "masked_sls_dedup": dedup,
+            "ragged_sls": ref.ragged_sls_ref,
             "fused_front_end_dedup": fe_dedup,
             "fused_partial_pool": ref.fused_partial_pool_ref,
             "fused_partial_pool_dedup": pp_dedup,
@@ -220,6 +232,11 @@ def kernel_cases(device, gen: torch.Generator, B: int = 8, G: int = 3,
                             scale),
         "masked_sls_dedup": (st.cold, cp.unique_rows, cp.slots, own0,
                              cp.n_slots, w2, cp.unique_scales),
+        # the G bags of an item laid out in one row of G * L columns, cut
+        # into bags of other lengths: one id, the rest, then nothing
+        "ragged_sls": (st.cold, local.reshape(B, -1), (0, 1, G * L, G * L),
+                       owned[0].reshape(B, -1), w.reshape(B, -1),
+                       None if scale is None else scale.reshape(B, -1)),
         "fused_front_end_dedup": (
             st.cold, hot, x, cp.unique_rows, cp.slots.reshape(B, G, L),
             cp.n_slots, hp.unique_rows, hp.slots.reshape(B, G, L),

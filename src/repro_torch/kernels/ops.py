@@ -163,6 +163,31 @@ def sls(table: torch.Tensor, indices: torch.Tensor,
         return ref.sls_ref(table, indices, weights)
 
 
+def ragged_sls(table: torch.Tensor, indices: torch.Tensor, edges,
+               owned: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None,
+               impl: str = "cuda") -> torch.Tensor:
+    """Masked SLS over T tables whose bags differ in length: (N, C)
+    entries, table t's bag in the columns [edges[t], edges[t + 1]) ->
+    (N, T, D) float32, each bag in fixed entry order.  On the card one
+    launch of the ragged_sls kernel; the plain version is
+    ``ref.ragged_sls_ref``.  No gradient (serving only)."""
+    edges = _sls.check_ragged_sls(table, indices, edges, owned, weights,
+                                  scales)
+    _no_grad_route("ragged_sls", table, weights, scales)
+    with build.kernel_call("ragged_sls"):
+        route = _route(impl, table)
+        if route == "kernel":
+            return _sls.ragged_sls(table, indices, edges, owned, weights,
+                                   scales)
+        if route == "fake":
+            return fake.ragged_sls(table, indices, edges, owned, weights,
+                                   scales)
+        return ref.ragged_sls_ref(table, indices, edges, owned, weights,
+                                  scales)
+
+
 def _dot_interaction(feats, self_interaction, impl):
     with build.kernel_call("dot_interaction"):
         route = _route(impl, feats)

@@ -98,6 +98,24 @@ def _fixed_order_accumulate(rows: torch.Tensor, f: torch.Tensor
     return out
 
 
+def ragged_sls_ref(table: torch.Tensor, indices: torch.Tensor, edges,
+                   owned: Optional[torch.Tensor] = None,
+                   weights: Optional[torch.Tensor] = None,
+                   scales: Optional[torch.Tensor] = None,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Bags of T tables that differ in length, (N, C) entries with table
+    t's bag in the columns [edges[t], edges[t + 1]) -> (N, T, D): each
+    table's columns pooled as :func:`_fixed_order_masked_sls` pools them,
+    in entry order -- the plain version of the ``ragged_sls`` kernel."""
+    def cols(x, a, b):
+        return None if x is None else x[:, a:b]
+    return torch.stack([
+        _fixed_order_masked_sls(table, indices[:, a:b], cols(owned, a, b),
+                                cols(weights, a, b), cols(scales, a, b),
+                                out_dtype)
+        for a, b in zip(edges[:-1], edges[1:])], dim=1)
+
+
 def masked_sls_quant_ref(table_q: torch.Tensor, indices: torch.Tensor,
                          owned: torch.Tensor, scales: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,

@@ -12,6 +12,12 @@
   :func:`sls_shape`.  The gather-once kernel reads each row through the
   plan, ``unique_rows[slots[e]]``, with no staging buffer: duplicates
   share one address and the L2 serves them.
+* ``ragged_sls`` -- ``csrc/masked_sls.cu``; it replaces no Pallas kernel
+  (the reference pools bags of one length): the masked_sls walk over T
+  tables whose bags differ in length, (N, C) entries with the T + 1 bag
+  column edges -> (N, T, D), one launch a tier.  A team of threads walks
+  several short bags of one table as one stream of entries, and the grid
+  takes the tables longest bags first.
 * ``fused_front_end`` and ``fused_front_end_dedup`` --
   ``csrc/fused_front_end.cu``; they replace
   ``repro/kernels/sls.py:fused_front_end_pallas`` and
@@ -139,6 +145,58 @@ def masked_sls(table: torch.Tensor, indices: torch.Tensor,
              out.data_ptr(), N, L, threads, _stream(table))
     build.check("masked_sls", err)
     build.KERNELS["masked_sls"].launches += 1
+    return out
+
+
+RAGGED_MAX_TABLES = 128   # tables of one ragged_sls launch, at most
+
+
+def check_ragged_sls(table, indices, edges, owned, weights, scales
+                     ) -> tuple:
+    """Input contract of the ragged_sls kernel (and its plain version);
+    returns the edges as a tuple of ints."""
+    edges = tuple(int(c) for c in edges)
+    if indices.dim() != 2:
+        raise ValueError(f"indices must be (N, C), got "
+                         f"{tuple(indices.shape)}")
+    if not 2 <= len(edges) <= RAGGED_MAX_TABLES + 1 or edges[0] != 0 \
+            or edges[-1] != indices.shape[1] \
+            or any(b < a for a, b in zip(edges, edges[1:])):
+        raise ValueError(f"bag edges must rise from 0 to the "
+                         f"{indices.shape[1]} columns, for 1 to "
+                         f"{RAGGED_MAX_TABLES} tables; got {edges}")
+    check_masked_sls(table, indices, owned, weights, scales)
+    return edges
+
+
+def ragged_sls(table: torch.Tensor, indices: torch.Tensor, edges,
+               owned: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, C) entries of T bags a row, table t's in the columns
+    [edges[t], edges[t + 1]) -> (N, T, D) float32 pooled rows on the card,
+    one launch (plain version: ``ref.ragged_sls_ref``).  The launch shape
+    is masked_sls's for N * T bags."""
+    edges = check_ragged_sls(table, indices, edges, owned, weights, scales)
+    if table.device.type != "cuda":
+        raise ValueError("the ragged_sls kernel takes CUDA tensors")
+    N = indices.shape[0]
+    T = len(edges) - 1
+    V, D = table.shape
+    out = torch.empty((N, T, D), dtype=torch.float32, device=table.device)
+    if N == 0:
+        return out
+    vec, _, inflight, threads, _ = sls_shape(
+        N * T, D, table.element_size(),
+        bool(_vec16(D, table.element_size(), table)), _n_sm(table))
+    fn = build.entry("ragged_sls", [_P, _I, _I64, _I, _I, _I, _P, _P, _P, _P,
+                                    _P, _I, _I, _P, _I, _P])
+    err = fn(table.data_ptr(), table.element_size(), V, D, vec, inflight,
+             indices.data_ptr(), _ptr(owned), _ptr(weights), _ptr(scales),
+             out.data_ptr(), N, T, (ctypes.c_int64 * len(edges))(*edges),
+             threads, _stream(table))
+    build.check("ragged_sls", err)
+    build.KERNELS["ragged_sls"].launches += 1
     return out
 
 

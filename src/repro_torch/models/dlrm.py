@@ -1,11 +1,17 @@
 """DLRM (paper Fig. 1 / Table I): bottom MLP -> PIFS embedding lookup ->
-pairwise-dot interaction -> top MLP -> CTR score.
+pairwise-dot interaction -> top MLP -> CTR score; and MLPerf's
+DLRM-DCNv2 (a ``DLRMDCNConfig``, ``cfg.interaction == "dcn"``): the bottom
+MLP's output and the pooled bags concatenated, then a low-rank cross
+network, before the top MLP.
 
 The port of ``repro.models.dlrm``: the serve step and the train step
 (:func:`loss_fn`, :func:`make_train_step`).  A batch is
 ``{"dense": (B, n_dense) f32, "indices": (B, T, L) int32, "weights":
 (B, T, L) f32 (optional), "labels": (B,) int32 (training)}`` with T
-tables and L lookups per bag, on the model's device.
+tables and L lookups per bag, on the model's device; where the tables'
+bags differ in length (``cfg.bag_edges``), ``indices`` and ``weights`` are
+(B, sum of the lengths), table t's bag in the columns
+``[bag_edges[t], bag_edges[t + 1])``.
 
 Training differentiates through the split front end (the masked_sls and
 dot_interaction kernels' autograd wrappers in ``kernels/ops.py``), as the
@@ -31,7 +37,7 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.pifs import PIFSEmbeddingEngine, engine_for_tables
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import MLP
+from repro_torch.models.layers import MLP, LowRankCross
 from repro_torch.models.params import joint_train_step
 from repro_torch.models.recsys import _bce
 from repro_torch.trace import span
@@ -42,12 +48,13 @@ def build_engine(cfg: DLRMConfig, device: DeviceLike = None,
                  dedup: str = "off", validate_ids: bool = False,
                  n_shards: int = 1
                  ) -> Tuple[PIFSEmbeddingEngine, np.ndarray]:
-    """The engine over the config's ``n_tables`` tables of ``emb_num``
-    rows; ``storage='int8'`` selects the quantized cold tier.
+    """The engine over the config's ``n_tables`` tables of
+    ``cfg.table_rows`` rows; ``storage='int8'`` selects the quantized cold
+    tier.
     ``n_shards`` stands in for the reference's ``mesh`` argument: the
     cold tier's shards (its tp axis), all on ``device``.  The MLPs stay
     replicated, as the reference's ``mlp_specs`` keep them."""
-    return engine_for_tables([cfg.emb_num] * cfg.n_tables, cfg.emb_dim,
+    return engine_for_tables(cfg.table_rows, cfg.emb_dim,
                              device=device, hot_fraction=hot_fraction,
                              storage=storage, dedup=dedup,
                              validate_ids=validate_ids, n_shards=n_shards)
@@ -68,7 +75,12 @@ class DLRM(nn.Module):
         F = cfg.n_tables + 1                   # pooled tables + bottom out
         self.bottom = MLP((cfg.n_dense,) + cfg.bottom_mlp, final_act=True,
                           device=dev)
-        self.top = MLP((F * (F - 1) // 2 + d,) + cfg.top_mlp, device=dev)
+        if cfg.interaction == "dcn":
+            self.cross = LowRankCross(F * d, cfg.cross_rank,
+                                      cfg.cross_layers, device=dev)
+            self.top = MLP((F * d,) + cfg.top_mlp, device=dev)
+        else:
+            self.top = MLP((F * (F - 1) // 2 + d,) + cfg.top_mlp, device=dev)
         # Table I widths don't always end at emb_dim (RMC1: 128 vs 64); a
         # linear projection aligns the dense feature with the embeddings
         self.bot_proj = (nn.Parameter(torch.empty(cfg.bottom_mlp[-1], d,
@@ -91,6 +103,11 @@ class DLRM(nn.Module):
         ``pifs.bottom_mlp``, ``pifs.front_end`` (either route) and
         ``pifs.top_mlp`` (``repro_torch.trace``).
 
+        A ``dcn`` model takes the split front end (a ``fused``
+        request raises): the pooled bags and the bottom MLP's output are
+        concatenated, x0 = [x, f_0 .. f_{T-1}] (B, (T + 1) D), in the span
+        ``pifs.front_end``, and crossed in ``pifs.cross``.
+
         ``batch["dense"]`` is read first, by the bottom MLP, and the
         lookup inputs ``indices`` and ``weights`` only after the bottom MLP
         and ``bot_proj`` are launched, so that a batch copied to the device
@@ -100,6 +117,12 @@ class DLRM(nn.Module):
             raise ValueError(f"unknown front_end {front_end!r}")
         if tiers != "all":
             front_end = "split"                # fused path is all-tiers only
+        edges = self.cfg.bag_edges
+        if front_end == "fused" and (self.cfg.interaction == "dcn"
+                                     or edges is not None):
+            raise ValueError("the fused front end pools bags of one length "
+                             "into the dot interaction; this model takes "
+                             "front_end='split'")
         with span("pifs.bottom_mlp"):
             x_bot = self.bottom(batch["dense"])
             if self.bot_proj is not None:
@@ -112,11 +135,18 @@ class DLRM(nn.Module):
                     dedup=dedup, front_end="fused")             # (B, P)
             else:
                 pooled = engine.lookup(state, idx, weights=w, mode=mode,
-                                       impl=impl, dedup=dedup,
-                                       tiers=tiers)             # (B, T, d)
+                                       impl=impl, dedup=dedup, tiers=tiers,
+                                       bag_edges=edges)         # (B, T, d)
                 feats = torch.cat([x_bot[:, None, :], pooled], dim=1)
-                inter = kernel_ops.dot_interaction(feats, impl=impl)
-        z = torch.cat([x_bot, inter], dim=-1)
+                if self.cfg.interaction == "dcn":
+                    x0 = feats.reshape(feats.shape[0], -1)
+                else:
+                    inter = kernel_ops.dot_interaction(feats, impl=impl)
+        if self.cfg.interaction == "dcn":
+            with span("pifs.cross"):
+                z = self.cross(x0)
+        else:
+            z = torch.cat([x_bot, inter], dim=-1)
         with span("pifs.top_mlp"):
             return self.top(z)[:, 0]
 

@@ -1,6 +1,7 @@
-"""Common layers: the plain MLP tower of the recsys / DLRM models, and the
-LM family's RMS norm, activations and FFN (functions over param dicts, as
-in ``repro.models.layers``).  The reference's ``ffn_apply_sharded`` (the
+"""Common layers: the plain MLP tower of the recsys / DLRM models, the
+low-rank cross network of DLRM-DCNv2, and the LM family's RMS norm,
+activations and FFN (functions over param dicts, as in
+``repro.models.layers``).  The reference's ``ffn_apply_sharded`` (the
 Megatron-SP FFN in a ``shard_map``) computes :func:`ffn_apply`'s function
 on one card, so it has no port."""
 from __future__ import annotations
@@ -70,4 +71,33 @@ class MLP(nn.Module):
             x = x @ getattr(self, f"layer{i}_w") + getattr(self, f"layer{i}_b")
             if i < self.n_layers - 1 or self.final_act:
                 x = torch.relu(x)
+        return x
+
+
+class LowRankCross(nn.Module):
+    """DCN-V2's low-rank cross network (arXiv:2008.13535 section 3, as
+    torchrec's ``LowRankCrossNet``): ``n_layers`` layers
+    ``x_{l+1} = x0 * (x_l @ v_l @ w_l + b_l) + x_l`` on a ``d``-wide x0,
+    ``v_l`` (d, rank) with no bias, ``w_l`` (rank, d) and ``b_l`` (d,),
+    stored (in, out) as :class:`MLP`'s weights and named ``layer{i}_v`` /
+    ``layer{i}_w`` / ``layer{i}_b``."""
+
+    def __init__(self, d: int, rank: int, n_layers: int, device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.register_parameter(
+                f"layer{i}_v", nn.Parameter(torch.empty(d, rank,
+                                                        device=device)))
+            self.register_parameter(
+                f"layer{i}_w", nn.Parameter(torch.empty(rank, d,
+                                                        device=device)))
+            self.register_parameter(
+                f"layer{i}_b", nn.Parameter(torch.zeros(d, device=device)))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.n_layers):
+            h = x @ getattr(self, f"layer{i}_v") @ getattr(self, f"layer{i}_w")
+            x = x0 * (h + getattr(self, f"layer{i}_b")) + x
         return x

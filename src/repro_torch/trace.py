@@ -10,7 +10,9 @@ The serve path's spans, all named ``pifs.*``: ``ServeBinding.execute``
 (``core/pifs.py``) holds ``pifs.execute`` around ``pifs.step`` (the serve
 step) and ``pifs.sync`` (the wait for the card); ``DLRM.forward``
 (``models/dlrm.py``) holds ``pifs.bottom_mlp``, ``pifs.front_end`` (lookup
-and interaction, either route) and ``pifs.top_mlp``.  The batch's copies
+and interaction, either route) and ``pifs.top_mlp``, and for DLRM-DCNv2
+``pifs.cross`` (the low-rank cross layers) between the last two.  The
+batch's copies
 to the device open where the step first reads an entry
 (``core/staging.py``): ``pifs.h2d`` for the step's first read (a DLRM's
 ``dense``, under ``pifs.bottom_mlp``) and ``pifs.h2d_late`` for each later

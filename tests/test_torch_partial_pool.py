@@ -322,11 +322,14 @@ def test_partial_pool_input_contracts():
 
 def test_registry_lists_every_tpu_kernel():
     """Eight kernels for the nine TPU kernels (row 2 is row 1 with a null
-    mask) in three sources, and ``apply_deltas`` and ``page_checksums``,
-    which replace the reference's jnp update and checksum reduction (no
-    Pallas kernel), in a fourth and a fifth."""
+    mask) in three sources; ``ragged_sls``, the pooling of bags that
+    differ in length, which the reference does not have, in the first of
+    them; and ``apply_deltas`` and ``page_checksums``, which replace the
+    reference's jnp update and checksum reduction (no Pallas kernel), in a
+    fourth and a fifth."""
     k = build.KERNELS
-    assert len(k) == 10
+    assert len(k) == 11
+    assert k["ragged_sls"].stem == "masked_sls"
     assert {v.stem for v in k.values()} == {"masked_sls", "dot_interaction",
                                             "fused_front_end",
                                             "apply_deltas", "page_checksums"}
