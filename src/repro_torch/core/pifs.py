@@ -1230,19 +1230,35 @@ class ServeBinding:
         their copies run while the bottom MLP does.  A batch under
         ``core.staging.PINNED_MIN_BYTES`` (a serving bucket) is copied
         whole before the step, as the overlap cannot repay the pinned
-        path's cost there.  Returns the (B,) scores on the device,
-        non-finite ones zeroed under ``scrub_scores``.  Under a
-        profiler the call is the span
-        ``pifs.execute`` around ``pifs.step`` and ``pifs.sync`` (the wait
-        for the card); the step's first read (or a small batch's copy) is
-        ``pifs.h2d`` and its later ones ``pifs.h2d_late``
-        (``repro_torch.trace``)."""
+        path's cost there.
+
+        A batch large enough (``core.staging.sub_batches``: from its bytes
+        and its item count; DLRM-DCNv2's 16,384 items, not an RMC's) runs
+        as k sub-batches, slices along axis 0, each staged through buffers
+        of its own and run on one of two compute streams in turn
+        (``BatchStager.pipeline``), with no wait between them: the host
+        copies and launches sub-batch j+1 while the card runs sub-batch j.
+        A step's every score depends on its own item alone, so the scores
+        are the step's on the same slices, joined into one (B,) tensor on
+        the current stream; the ids are checked, and the scores scrubbed,
+        over the whole batch, and the card is waited for once.
+
+        Returns the (B,) scores on the device, non-finite ones zeroed
+        under ``scrub_scores``.  Under a profiler the call is the span
+        ``pifs.execute`` around one ``pifs.step`` a (sub-)batch and
+        ``pifs.sync`` (the wait for the card); a step's first read (or a
+        small batch's copy) is ``pifs.h2d`` and its later ones
+        ``pifs.h2d_late`` (``repro_torch.trace``)."""
         with span("pifs.execute"):
             if self.validate_ids and self.idx_key and self.idx_key in batch:
                 self.engine._check_ids(batch[self.idx_key])
-            staged = self._stager.batch(batch)
-            with span("pifs.step"):
-                out = self.steps[self.active](self.state, staged)
+            step = self.steps[self.active]
+            parts = []
+            with self._stager.pipeline(batch) as subs:
+                for staged, lane in subs:
+                    with span("pifs.step"), lane:
+                        parts.append(step(self.state, staged))
+            out = self._stager.join(parts)
             with span("pifs.sync"):
                 self._sync()
         self.last_poisoned = 0
@@ -1584,9 +1600,10 @@ class ServeBinding:
 
     def staging_stats(self) -> dict:
         """Since :meth:`reset_plan_stats`: ``calls`` (batches executed),
-        ``bytes`` (host bytes copied to the device) and ``late_bytes``
-        (those copied after the step's first read of its batch, which the
-        step's own work can hide)."""
+        ``bytes`` (host bytes copied to the device), ``late_bytes`` (those
+        copied after a step's first read of its (sub-)batch, which the
+        step's own work can hide), ``split_calls`` (batches run as more
+        than one sub-batch) and ``sub_batches`` (the steps they ran)."""
         return self._stager.stats()
 
 
